@@ -1,0 +1,54 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: without an NVIDIA card every test skips (a CUDA kernel has
+no CPU mode).  Imports neither JAX nor the JAX package, so it runs on a
+machine that has only PyTorch and the CUDA toolkit:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+The ladder and the comparison rules are those of
+``repro_torch.kernels.checks``, which chip_smoke.py uses too.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import checks, fps  # noqa: E402
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", checks.KERNELS)
+def test_kernel_matches_plain_on_the_ladder(cuda_device, name):
+    calls = [args for n, args in checks.ladder(cuda_device) if n == name]
+    assert calls
+    for args in calls:
+        checks.hold(name, args)
+
+
+@pytest.mark.cuda
+def test_fps_exhaustion_on_the_card(cuda_device):
+    c, m = checks.blocks(11, 3, 40, cuda_device, empty=1)
+    m[1] = torch.arange(40, device=cuda_device) < 3
+    idx = fps.fps_blocks(c, m, k=7).cpu().numpy()
+    assert (idx[0] == 0).all()
+    assert set(idx[1][:3]) == {0, 1, 2} and (idx[1][3:] == idx[1][2]).all()
+
+
+@pytest.mark.cuda
+def test_wrappers_count_launches_and_check_arguments(cuda_device):
+    c, m = checks.blocks(0, 2, 33, cuda_device)
+    before = fps.fps_blocks.launches
+    fps.fps_blocks(c, m, k=3)
+    assert fps.fps_blocks.launches == before + 1
+    with pytest.raises(TypeError, match="float32"):
+        fps.fps_blocks(c.double(), m, k=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        fps.fps_blocks(c.transpose(0, 1).contiguous().transpose(0, 1), m,
+                       k=3)
