@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one CUDA card and the
-CUDA toolkit.  Phases, each of which raises on failure:
+CUDA toolkit.  It drives both paths of the port, serving and training.
+Phases, each of which raises on failure:
 
 1. the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the float32 matmul settings (TF32 off, "highest");
@@ -13,9 +14,11 @@ CUDA toolkit.  Phases, each of which raises on failure:
    same CUDA tensors, by the rules of ``repro_torch.kernels.checks``: on
    its odd ladder (block sizes 65/200/33, empty blocks, all-invalid masks,
    FPS exhaustion, out-of-range gathers, FPS blocks of 1500-5000 lanes,
-   1500-lane windows) and on the inputs the serving path gives it in one
-   microbatch of the largest bucket, with the kernel's, the plain
-   version's and the PyTorch library call's median times;
+   1500-lane windows; scatter-adds over 33/128/200-row windows with
+   out-of-range, duplicate and chunked rows) and on the inputs the serving
+   path gives the four forward kernels in one microbatch of the largest
+   bucket, with the kernel's, the plain version's and the PyTorch library
+   call's median times;
 4. serve 8 mixed-size segmentation requests through ``ServeEngine`` on the
    card (pointnet2 seg, full widths, th=256, buckets 4096/16384/65536,
    microbatch 4, seeded random weights), with every kernel's launch count
@@ -24,7 +27,16 @@ CUDA toolkit.  Phases, each of which raises on failure:
 5. one 289,000-point cloud (S3DIS scale) through ``pnn.apply``: its time
    and peak device memory;
 6. one microbatch per bucket under ``torch.profiler``: device time by
-   kernel and the card's idle share.
+   kernel and the card's idle share;
+7. training (``repro_torch.train.pnn``, pointnet2 seg at full widths,
+   th=256): the first step's loss and every parameter's gradient on the
+   card against the CPU, for one 4096-point cloud and for the 8 x 16384
+   batch of the run; then 20 AdamW steps at 8 x 16384 points through
+   ``fit``, with every kernel's launch count read around them, the
+   losses, the median step time and the peak device memory;
+8. the kernels on one training step's own inputs (the gather's backward,
+   ``scatter_add_blocks``, on that step's cotangents), held and timed as
+   in phase 3, and that step under ``torch.profiler``.
 
 It then prints a ``{"kernels": [...]}`` line and, last, the device line.
 Without a CUDA card it exits non-zero and prints no result.
@@ -49,6 +61,10 @@ MICROBATCH = 4
 REQUESTS = 8
 SEED = 0
 N_289K = 289_000
+TRAIN_N = 16384          # points a cloud: the middle serving bucket
+TRAIN_BATCH = 8
+TRAIN_STEPS = 20
+PARITY_N = 4096
 # H100 SXM published rates (NVIDIA data sheet): HBM3 bytes/s and fp32
 # (non-tensor-core) operations/s.  Comparisons and selects count as fp32
 # operations.
@@ -62,7 +78,9 @@ REPLACES = {
     "ball_query_blocks": "src/repro/kernels/ball_query.py:43",
     "knn_blocks": "src/repro/kernels/knn.py:31",
     "gather_blocks": "src/repro/kernels/gather.py:30",
+    "scatter_add_blocks": "src/repro/kernels/gather.py:65",
 }
+SERVING = ("fps_blocks", "ball_query_blocks", "knn_blocks", "gather_blocks")
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name.rsplit('_', 1)[0]}.cu"
            for name in REPLACES}
 
@@ -139,6 +157,13 @@ def work(name: str, args: dict) -> tuple[float, float]:
             ops += float((cm.sum(1) * nv).sum()) * 2.0   # radius test, count
             nbytes += cm.numel() + nb * nq * 4
         return nbytes, ops
+    if name == "scatter_add_blocks":
+        # reads the indices and each in-range cotangent row, writes the
+        # whole window tile; one add per in-range (row, channel)
+        g, idx, w = args["g"], args["idx"], args["w"]
+        nb, _, c = g.shape
+        rows = int(((idx >= 0) & (idx < w)).sum())
+        return idx.numel() * 4 + rows * c * 4 + nb * w * c * 4, float(rows * c)
     f, idx = args["feats"], args["idx"]
     nb, w, c = f.shape
     ok = (idx >= 0) & (idx < w)
@@ -153,9 +178,10 @@ def work(name: str, args: dict) -> tuple[float, float]:
 
 class Recorder:
     """Record the arguments of every kernel call that ``kernels.ops`` makes
-    (the main path's own inputs) for the length of one forward, by handing
-    ``ops`` stand-ins for its kernel modules; the kernels themselves and
-    their launch counters are untouched."""
+    (the main path's own inputs) for the length of one forward, or one
+    forward and backward, by handing ``ops`` stand-ins for its kernel
+    modules; the kernels themselves and their launch counters are
+    untouched."""
 
     def __init__(self):
         self.calls = []
@@ -164,13 +190,17 @@ class Recorder:
         import types
         from repro_torch.kernels import ops
 
-        def stand_in(mod, name, to_args):
-            orig = getattr(mod, name)
+        def stand_in(mod, name, to_args, **more):
+            def wrap(name, to_args):
+                orig = getattr(mod, name)
 
-            def rec(*a, **kw):
-                self.calls.append((name, to_args(*a, **kw)))
-                return orig(*a, **kw)
-            return types.SimpleNamespace(**{name: rec})
+                def rec(*a, **kw):
+                    self.calls.append((name, to_args(*a, **kw)))
+                    return orig(*a, **kw)
+                return rec
+            fns = {name: to_args, **more}
+            return types.SimpleNamespace(
+                **{n: wrap(n, f) for n, f in fns.items()})
 
         self._saved = {a: getattr(ops, a) for a in ("_fps", "_bq", "_knn",
                                                      "_ga")}
@@ -183,8 +213,9 @@ class Recorder:
         ops._knn = stand_in(
             ops._knn, "knn_blocks",
             lambda q, w, wm, *, k: dict(q=q, window=w, wmask=wm, num=k))
-        ops._ga = stand_in(ops._ga, "gather_blocks",
-                           lambda f, i: dict(feats=f, idx=i))
+        ops._ga = stand_in(
+            ops._ga, "gather_blocks", lambda f, i: dict(feats=f, idx=i),
+            scatter_add_blocks=lambda g, i, *, w: dict(g=g, idx=i, w=w))
         return self
 
     def __exit__(self, *exc):
@@ -198,9 +229,27 @@ def library_calls(name, args) -> dict:
     """PyTorch calls that compute the same function on these inputs, where
     there are: a gather whose indices all lie in the window is
     ``torch.gather`` (with the index widened to (NB, M, C)) or advanced
-    indexing (with the (NB, M) index).  Both are timed; the faster is
-    reported."""
+    indexing (with the (NB, M) index); a scatter-add is ``scatter_add_``
+    along dim 1 into a zeroed (NB, W+1, C) buffer (index widened to
+    (NB, M, C), out-of-range rows sent to the sink row W) or
+    ``index_add_`` into its flattened (NB*(W+1), C) view.  Each is timed;
+    the fastest is reported.  The indices are prepared outside the timed
+    call; the zeroed buffer is part of it, as the kernel writes its zeros
+    too."""
     import torch
+    if name == "scatter_add_blocks":
+        g, idx, w = args["g"], args["idx"], args["w"]
+        nb, m, c = g.shape
+        slot = torch.where((idx >= 0) & (idx < w), idx.long(), w)
+        wide = slot[..., None].expand(nb, m, c).contiguous()
+        flat = (slot + torch.arange(nb, device=g.device)[:, None] * (w + 1)
+                ).reshape(-1)
+        g2 = g.reshape(nb * m, c)
+        return {
+            "scatter_add_": lambda: g.new_zeros((nb, w + 1, c)).scatter_add_(
+                1, wide, g),
+            "index_add_": lambda: g.new_zeros((nb * (w + 1), c)).index_add_(
+                0, flat, g2)}
     if name != "gather_blocks":
         return {}
     f, idx = args["feats"], args["idx"]
@@ -219,6 +268,9 @@ def shape_of(name, args):
     if name == "gather_blocks":
         nb, w, c = args["feats"].shape
         return f"NB={nb} W={w} C={c} M={args['idx'].shape[1]}"
+    if name == "scatter_add_blocks":
+        nb, m, c = args["g"].shape
+        return f"NB={nb} W={args['w']} C={c} M={m}"
     nb, nq = args["q"].shape[:2]
     return f"NB={nb} Q={nq} W={args['window'].shape[1]} k={args['num']}"
 
@@ -279,21 +331,14 @@ def make_engine(device, params=None):
     return ServeEngine(cfg, params=params, seed=SEED, device=device)
 
 
-def phase_main_path_kernels(engine):
-    """Record the kernel inputs of one full microbatch of the largest
-    bucket, served through the engine, then hold and time every kernel
-    call on them."""
+def hold_and_time(calls) -> dict:
+    """Hold and time every recorded kernel call; returns {kernel name:
+    sums over its calls of ms, plain_ms, bytes, ops, library_ms, and the
+    largest error}."""
     import torch
     from repro_torch.kernels import checks
-    b = BUCKETS[-1]
-    with Recorder() as rec:
-        rids = [engine.submit(clustered_cloud(b, 100 + i))
-                for i in range(MICROBATCH)]
-        engine.flush()
-    for rid in rids:
-        engine.take(rid)
     rows = {}
-    for name, args in rec.calls:
+    for name, args in calls:
         res = checks.hold(name, args)
         run_kernel, run_plain = checks.runners(name, args)
         ms = median_ms(run_kernel, reps=20)
@@ -320,10 +365,25 @@ def phase_main_path_kernels(engine):
                              else row["library_ms"] + lib_ms)
         row["err"] = max(row["err"], res["max_abs_err"])
         row["calls"] += 1
-    missing = set(REPLACES) - set(rows)
+    torch.cuda.synchronize()
+    return rows
+
+
+def phase_main_path_kernels(engine):
+    """Record the kernel inputs of one full microbatch of the largest
+    bucket, served through the engine, then hold and time every kernel
+    call on them."""
+    b = BUCKETS[-1]
+    with Recorder() as rec:
+        rids = [engine.submit(clustered_cloud(b, 100 + i))
+                for i in range(MICROBATCH)]
+        engine.flush()
+    for rid in rids:
+        engine.take(rid)
+    rows = hold_and_time(rec.calls)
+    missing = set(SERVING) - set(rows)
     if missing:
         raise AssertionError(f"main path made no call to {sorted(missing)}")
-    torch.cuda.synchronize()
     return rows
 
 
@@ -344,7 +404,7 @@ def phase_serve(engine):
     launches = ops.launch_counts()
     log(f"served {len(rids)} requests of sizes {sizes} in {wall:.3f} s")
     log(f"launches during serving: {launches}")
-    idle = [k for k, v in launches.items() if v == 0]
+    idle = [k for k in SERVING if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
     results = {}
@@ -417,9 +477,6 @@ def phase_profile(engine):
     busy share of the wall time (profiler on)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    # The kernels of csrc/ live in an anonymous namespace.
-    ported = tuple(f"(anonymous namespace)::{k}_kernel"
-                   for k in ("fps", "ball_query", "knn", "gather"))
     for b in BUCKETS:
         clouds = [clustered_cloud(b, 500 + i) for i in range(MICROBATCH)]
         torch.cuda.synchronize()
@@ -431,23 +488,167 @@ def phase_profile(engine):
             wall_us = (time.monotonic() - t0) * 1e6
         for rid in rids:
             engine.take(rid)
-        dev = []
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            if us > 0 and e.device_type.name == "CUDA":
-                dev.append((us, e.count, e.key))
-        dev.sort(reverse=True)
-        busy = sum(us for us, _, _ in dev)
-        launches = sum(c for _, c, _ in dev)
-        mine = sum(us for us, _, k in dev if any(p in k for p in ported))
-        log(f"profile bucket {b} (microbatch {MICROBATCH}): wall "
-            f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
-            f"(idle share {1 - busy / wall_us:.3f}), {launches} device ops, "
-            f"ported kernels {mine / 1e3:.2f} ms")
-        for us, count, key in dev[:8]:
-            log(f"    {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+        report_profile(prof, wall_us,
+                       f"profile bucket {b} (microbatch {MICROBATCH})")
+
+
+def report_profile(prof, wall_us: float, title: str, top: int = 8):
+    """Device time by kernel, device ops, the ported kernels' share and the
+    card's idle share of ``wall_us``, from one ``torch.profiler`` run."""
+    # The kernels of csrc/ live in an anonymous namespace.
+    ported = tuple(f"(anonymous namespace)::{k}_kernel"
+                   for k in ("fps", "ball_query", "knn", "gather",
+                             "scatter_add"))
+    dev = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0 and e.device_type.name == "CUDA":
+            dev.append((us, e.count, e.key))
+    dev.sort(reverse=True)
+    busy = sum(us for us, _, _ in dev)
+    launches = sum(c for _, c, _ in dev)
+    mine = sum(us for us, _, k in dev if any(p in k for p in ported))
+    if busy <= 0:
+        raise AssertionError(f"{title}: the profiler saw no device time")
+    log(f"{title}: wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy / 1e3:.2f} ms (idle share {1 - busy / wall_us:.3f}), "
+        f"{launches} device ops, ported kernels {mine / 1e3:.2f} ms")
+    for us, count, key in dev[:top]:
+        log(f"    {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# Training.
+# ---------------------------------------------------------------------------
+
+def train_cfg(n: int, batch: int):
+    from repro_torch.train import pnn as train
+    return train.TrainConfig(preset="pointnet2_seg", n_points=n, th=TH,
+                             batch=batch, steps=TRAIN_STEPS, seed=SEED)
+
+
+def first_batch(cfg, device):
+    """The batch ``fit`` trains on at step 0."""
+    from repro_torch.data import synthetic
+    pts, labels = synthetic.segmentation_batch(cfg.seed + 11, 0, cfg.batch,
+                                               cfg.n_points, device=device)
+    return {"points": pts, "labels": labels}
+
+
+def phase_grad_parity(n: int, batch: int):
+    """The first training step's loss and every parameter's gradient on
+    the card against the CPU (plain versions), from the weights and the
+    batch ``fit`` starts from, by ``checks.hold_grads``."""
+    import copy
+    import torch
+    from repro_torch.kernels import checks, ops
+    from repro_torch.models import pnn
+    from repro_torch.train import pnn as train
+    cfg = train_cfg(n, batch)
+    mcfg = train.model_config(cfg)
+    model = pnn.init(mcfg, torch.Generator().manual_seed(cfg.seed))
+    t0 = time.monotonic()
+    want, wm = train.grads_fn(model, mcfg)(train.param_dict(model),
+                                           first_batch(cfg, "cpu"))
+    cpu_s = time.monotonic() - t0
+    card = copy.deepcopy(model).cuda()
+    before = ops.launch_counts()["scatter_add_blocks"]
+    got, gm = train.grads_fn(card, mcfg)(train.param_dict(card),
+                                         first_batch(cfg, "cuda"))
+    torch.cuda.synchronize()
+    backward = ops.launch_counts()["scatter_add_blocks"] - before
+    rel = checks.hold_grads(got, want)
+    worst = max(rel, key=rel.get)
+    log(f"gradients {batch}x{n}, card vs CPU: loss {float(gm['loss']):.7f} "
+        f"vs {float(wm['loss']):.7f}; all {len(got)} parameters non-zero "
+        f"on the card; largest relative L2 difference {rel[worst]:.3g} "
+        f"({worst}; rule <= {checks.GRAD_REL_TOL}); scatter_add_blocks "
+        f"launched {backward} times by the backward; CPU took {cpu_s:.1f} s")
+    if backward == 0:
+        raise AssertionError("the card's backward did not launch "
+                             "scatter_add_blocks")
+
+
+def phase_train():
+    """The training path: ``fit`` for TRAIN_STEPS AdamW steps at
+    TRAIN_BATCH x TRAIN_N points on the card, with every kernel's launch
+    count read around the run."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train import pnn as train
+    cfg = train_cfg(TRAIN_N, TRAIN_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    model, state, info = train.fit(cfg, log=log)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+    losses = [h["loss"] for h in info["history"]]
+    dts = [h["dt"] * 1e3 for h in info["history"]]
+    log(f"trained {len(losses)} steps of {cfg.batch}x{cfg.n_points} points "
+        f"in {wall:.2f} s: median step {statistics.median(dts):.1f} ms "
+        f"(first {dts[0]:.1f} ms), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("losses: " + " ".join(f"{x:.4f}" for x in losses))
+    log("step ms: " + " ".join(f"{x:.1f}" for x in dts))
+    log(f"launches during training: {launches}")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"training: bad losses {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    log(f"mean loss, first 5 steps {first:.4f}, last 5 steps {last:.4f}")
+    if not last < first:
+        raise AssertionError("training: the loss did not fall")
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched in training: {idle}")
+    return cfg, model, state, launches
+
+
+def phase_train_kernels(cfg, model):
+    """Record the kernel calls of one training step's forward and backward
+    at full size, check that every parameter gets a gradient, and hold and
+    time the gather's backward on that step's own cotangents."""
+    from repro_torch.train import pnn as train
+    mcfg = train.model_config(cfg)
+    with Recorder() as rec:
+        grads, _ = train.grads_fn(model, mcfg)(train.param_dict(model),
+                                               first_batch(cfg, "cuda"))
+    silent = [k for k, g in grads.items() if not bool(g.abs().sum() > 0)]
+    if silent:
+        raise AssertionError(f"parameters without gradient: {silent}")
+    calls = [(n, a) for n, a in rec.calls if n == "scatter_add_blocks"]
+    rec.calls.clear()
+    if not calls:
+        raise AssertionError("the training step made no scatter-add call")
+    return hold_and_time(calls)
+
+
+def phase_profile_train(cfg, model, state):
+    """One more training step (forward, backward, AdamW) under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import pnn as train
+    mcfg = train.model_config(cfg)
+    step = train.make_train_step(model, mcfg, opt_lib.OptConfig(
+        lr=cfg.lr, warmup=0, total_steps=cfg.steps,
+        weight_decay=cfg.weight_decay))
+    batch = first_batch(cfg, "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        _, _, metrics = step(train.param_dict(model), state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    report_profile(prof, wall_us, f"profile training step "
+                   f"({cfg.batch}x{cfg.n_points})", top=12)
 
 
 def main() -> int:
@@ -478,6 +679,13 @@ def main() -> int:
     phase_cpu_reference(engine, clouds, results)
     phase_289k(engine)
     phase_profile(engine)
+    del engine
+    phase_grad_parity(PARITY_N, 1)
+    phase_grad_parity(TRAIN_N, TRAIN_BATCH)
+    cfg, model, state, train_launches = phase_train()
+    rows.update(phase_train_kernels(cfg, model))
+    launches["scatter_add_blocks"] = train_launches["scatter_add_blocks"]
+    phase_profile_train(cfg, model, state)
 
     kernels = []
     for name in REPLACES:
@@ -488,9 +696,12 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bms, "bound_by": by, "library_ms": r["library_ms"]})
-    log(f"(kernel ms, plain_ms, bound_ms, library_ms: sums over the "
-        f"{MICROBATCH}x{BUCKETS[-1]} microbatch's calls; launches: the "
-        f"serving run; card: {smi}; total {time.monotonic() - t_start:.1f} s)")
+    log(f"(kernel ms, plain_ms, bound_ms, library_ms: sums over the calls "
+        f"of the {MICROBATCH}x{BUCKETS[-1]} serving microbatch, and for "
+        f"scatter_add_blocks of one {TRAIN_BATCH}x{TRAIN_N} training step; "
+        f"launches: the serving run, and for scatter_add_blocks the "
+        f"{TRAIN_STEPS} training steps; card: {smi}; total "
+        f"{time.monotonic() - t_start:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,6 +36,7 @@ SIGNATURES = {
                              ctypes.c_float, _P],
     "fc_knn_blocks": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fc_gather_blocks": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "fc_scatter_add_blocks": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None

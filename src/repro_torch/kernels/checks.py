@@ -8,7 +8,12 @@ empty blocks, all-invalid masks, FPS exhaustion, out-of-range gathers --
 plus blocks wider than one CTA of threads: FPS at 1500, 3000 and 5000
 lanes (two, three and five points a thread, with scattered masks and
 exhaustion past lane 1024), ball query and kNN over 1500-lane windows
-(shared memory above the 48 KB default).
+(shared memory above the 48 KB default).  The gather's backward,
+``scatter_add_blocks``, has its own: windows of 33, 128 and 200 rows, 65
+and 768 cotangent rows, 9, 64 and 128 channels, indices below 0, at or
+above W and the -1 padding, a block whose rows all land on one slot, a
+block whose rows all fall outside, no blocks at all, and a run chunked
+through ``ops.gather_blocks``' autograd node against an unchunked one.
 
 Rules:
 
@@ -18,18 +23,32 @@ Rules:
 * ball-query counts: the kernel squares the radius in double, the plain
   version in f32 (as the two JAX paths do), so a row's count may differ by
   at most the number of its valid lanes whose distance lies within
-  ``D2_TOL`` of r^2 (``check_counts``).
+  ``D2_TOL`` of r^2 (``check_counts``);
+* scatter-add within ``SUM_TOL`` (absolute and relative).  CUDA's own
+  ``scatter_add_`` adds with atomics in no fixed order, so the plain
+  version scatters one row position at a time and sums each cell's rows
+  in row order, as the kernel does; the two then agree exactly, and the
+  tolerance stands for the order of float32 sums, which the function's
+  contract does not fix;
+* a model's gradients, card against CPU (``hold_grads``): every parameter
+  gets a gradient that is not all zero, within ``GRAD_REL_TOL`` relative
+  L2 of the CPU's.  The kernels repeat their plain versions' indices
+  exactly, so what differs is the order of float32 sums (matmuls, the
+  scatter-adds), far below this bar.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import ball_query, fps, gather, knn
+from repro_torch.kernels import ball_query, fps, gather, knn, ops
 from repro_torch.kernels.common import INF, sqdist_rows
 
 D2_TOL = 1e-5
-KERNELS = ("fps_blocks", "ball_query_blocks", "knn_blocks", "gather_blocks")
+SUM_TOL = 1e-5
+GRAD_REL_TOL = 1e-3
+KERNELS = ("fps_blocks", "ball_query_blocks", "knn_blocks", "gather_blocks",
+           "scatter_add_blocks")
 
 
 def blocks(seed, nb, bs, device, empty=0, invalid=False):
@@ -80,7 +99,44 @@ def ladder(device) -> list:
     calls.append(("ball_query_blocks", dict(q=cen, cmask=cm, window=c,
                                             wmask=m, radius=0.5, num=16)))
     calls.append(("knn_blocks", dict(q=cen, window=c, wmask=m, num=3)))
+    return calls + scatter_ladder(device)
+
+
+def scatter_ladder(device) -> list:
+    """[("scatter_add_blocks", arguments)] of the scatter-add cases."""
+    calls = []
+    for seed, (w, m, c) in enumerate([(33, 65, 9), (128, 768, 64),
+                                      (128, 768, 128), (200, 65, 64),
+                                      (200, 768, 128), (33, 768, 9)]):
+        rng = np.random.default_rng(30 + seed)
+        nb = 4
+        g = rng.normal(0, 1, (nb, m, c)).astype(np.float32)
+        idx = rng.integers(-3, w + 3, (nb, m)).astype(np.int32)
+        idx[:, ::7] = -1                                  # padding rows
+        idx[1] = w // 2                                   # one slot takes all
+        idx[2] = rng.choice([-5, -1, w, w + 9], m)        # all outside
+        calls.append(("scatter_add_blocks", dict(
+            g=torch.from_numpy(g).to(device),
+            idx=torch.from_numpy(idx).to(device), w=w)))
+    calls.append(("scatter_add_blocks", dict(
+        g=torch.zeros((0, 65, 9), device=device),
+        idx=torch.zeros((0, 65), dtype=torch.int32, device=device), w=33)))
+    rng = np.random.default_rng(40)
+    g = rng.normal(0, 1, (7, 768, 64)).astype(np.float32)
+    idx = rng.integers(-2, 130, (7, 768)).astype(np.int32)
+    calls.append(("scatter_add_blocks", dict(
+        g=torch.from_numpy(g).to(device),
+        idx=torch.from_numpy(idx).to(device), w=128, chunk=3)))
     return calls
+
+
+def _gather_grad(g, idx, w, chunk):
+    """The window's gradient through ``ops.gather_blocks`` with ``chunk``:
+    one ``Gathering`` node, and so one scatter-add, per chunk."""
+    f = torch.zeros((g.shape[0], w, g.shape[2]), device=g.device,
+                    requires_grad=True)
+    (df,) = torch.autograd.grad(ops.gather_blocks(f, idx, chunk=chunk), f, g)
+    return df
 
 
 def runners(name: str, args: dict):
@@ -93,6 +149,11 @@ def runners(name: str, args: dict):
         f, i = args["feats"], args["idx"]
         return (lambda: gather.gather_blocks(f, i),
                 lambda: gather.gather_plain(f, i))
+    if name == "scatter_add_blocks":
+        g, i, w, chunk = args["g"], args["idx"], args["w"], args.get("chunk")
+        return ((lambda: _gather_grad(g, i, w, chunk)) if chunk
+                else (lambda: gather.scatter_add_blocks(g, i, w=w)),
+                lambda: gather.scatter_add_plain(g, i, w=w))
     q, w, wm, num = args["q"], args["window"], args["wmask"], args["num"]
     if name == "ball_query_blocks":
         cm, r = args["cmask"], args["radius"]
@@ -158,6 +219,10 @@ def hold(name: str, args: dict, tol: float = D2_TOL) -> dict:
     compare them.  Returns {max_abs_err, near_tie_flips, count_rows}."""
     run_kernel, run_plain = runners(name, args)
     got, want = run_kernel(), run_plain()
+    if name == "scatter_add_blocks":
+        torch.testing.assert_close(got, want, atol=SUM_TOL, rtol=SUM_TOL)
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        return {"max_abs_err": err, "near_tie_flips": 0, "count_rows": 0}
     if name in ("fps_blocks", "gather_blocks"):
         if not torch.equal(got, want):
             raise AssertionError(f"{name} differs from its plain version at "
@@ -172,3 +237,28 @@ def hold(name: str, args: dict, tol: float = D2_TOL) -> dict:
         rows = check_counts(got[2], want[2], q, w, wm,
                             radius=args["radius"], tol=tol)
     return {"max_abs_err": err, "near_tie_flips": flips, "count_rows": rows}
+
+
+def hold_grads(card: dict, cpu: dict, tol: float = GRAD_REL_TOL) -> dict:
+    """Hold gradients {name: tensor or None} computed on the card against
+    the same parameters' gradients on the CPU.  Raises if a parameter has
+    no gradient or an all-zero one on the card, or differs from the CPU's
+    by more than ``tol`` in relative L2.  Returns {name: relative L2}."""
+    if sorted(card) != sorted(cpu):
+        raise AssertionError("the two gradient sets name different "
+                             "parameters")
+    silent = [k for k, g in card.items()
+              if g is None or not bool(g.abs().sum() > 0)]
+    if silent:
+        raise AssertionError(f"{len(silent)} of {len(card)} parameters get "
+                             f"no gradient on the card: {silent}")
+    rel = {}
+    for k, g in card.items():
+        want = cpu[k].double()
+        rel[k] = float((g.double().cpu() - want).norm()
+                       / want.norm().clamp(min=1e-30))
+    bad = {k: r for k, r in rel.items() if not r <= tol}
+    if bad:
+        raise AssertionError(f"gradients differ from the CPU's beyond {tol} "
+                             f"(relative L2): {bad}")
+    return rel

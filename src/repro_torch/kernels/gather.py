@@ -1,9 +1,10 @@
-"""Block-wise in-window gather (forward): CUDA kernel and plain version.
+"""Block-wise in-window gather and its backward: CUDA kernels and plain
+versions.
 
-Counterpart of ``repro.kernels.gather.gather_blocks`` (the Pallas kernel's
-one-hot matmul) and of its oracle ``repro.kernels.ref.gather_blocks``.
-The backward, ``scatter_add_blocks``, belongs to training and is not
-ported yet.
+Counterparts of ``repro.kernels.gather.gather_blocks`` and
+``scatter_add_blocks`` (the Pallas kernels' one-hot matmul and its
+transpose) and of their oracles in ``repro.kernels.ref``.  The backward
+runs in training only, through ``kernels.vjp.Gathering``.
 """
 from __future__ import annotations
 
@@ -49,3 +50,46 @@ def gather_blocks(window_feats: torch.Tensor, idx: torch.Tensor):
 
 
 gather_blocks.launches = 0
+
+
+def scatter_add_plain(g: torch.Tensor, idx: torch.Tensor, *, w: int):
+    """g (NB, M, C), idx (NB, M) -> (NB, W, C): each row of ``g`` added into
+    the window row ``idx`` names; a row whose index lies outside [0, W) goes
+    to a sink row that is sliced off.
+
+    One masked ``scatter_add_`` into the (NB, W+1, C) buffer per row
+    position ``m``, in order, so that every cell sums its rows in row
+    order on either device, as the kernel does (CUDA's ``scatter_add_`` of
+    all rows at once adds with atomics in no fixed order)."""
+    nb, m, c = g.shape
+    ok = (idx >= 0) & (idx < w)
+    slot = torch.where(ok, idx.long(), w)[..., None, None].expand(nb, m, 1, c)
+    out = g.new_zeros((nb, w + 1, c))
+    for j in range(m):
+        out.scatter_add_(1, slot[:, j], g[:, j:j + 1])
+    return out[:, :w]
+
+
+def scatter_add_blocks(g: torch.Tensor, idx: torch.Tensor, *, w: int):
+    """g (NB, M, C) f32, idx (NB, M) int32 -> (NB, W, C): the backward of
+    ``gather_blocks`` over a window of ``w`` rows.
+
+    On the card this launches ``csrc/scatter_add.cu``; on the CPU it runs
+    ``scatter_add_plain``."""
+    if not on_card(g, idx):
+        return scatter_add_plain(g, idx, w=w)
+    nb, m, c = g.shape
+    require(g, "g", torch.float32, (nb, m, c))
+    require(idx, "idx", torch.int32, (nb, m))
+    out = torch.empty((nb, w, c), dtype=torch.float32, device=g.device)
+    if nb == 0 or w == 0 or c == 0:
+        return out
+    stream = torch.cuda.current_stream().cuda_stream
+    err = _build.library().fc_scatter_add_blocks(
+        g.data_ptr(), idx.data_ptr(), out.data_ptr(), nb, m, c, w, stream)
+    _build.check(err, "scatter_add_blocks")
+    scatter_add_blocks.launches += 1
+    return out
+
+
+scatter_add_blocks.launches = 0

@@ -9,6 +9,12 @@ Every op takes the caller's layout -- points ``(NB, BS, 3)``, masks
 ``(NB, BS)`` -- and ``chunk``: with it, the block axis is processed
 ``chunk`` blocks per call, in a Python loop, bounding the live distance
 tile at large scale.  ``leaf_chunks`` is the shared splitting helper.
+
+Every op carries its gradient rule (``kernels/vjp.py``) on both devices:
+``gather_blocks`` differentiates in its features, its backward the
+``scatter_add_blocks`` kernel (chunked as the forward was, one
+``Gathering`` node per chunk); FPS, ball query and kNN are index producers
+that pass no gradient on.
 """
 from __future__ import annotations
 
@@ -18,11 +24,13 @@ from repro_torch.kernels import ball_query as _bq
 from repro_torch.kernels import fps as _fps
 from repro_torch.kernels import gather as _ga
 from repro_torch.kernels import knn as _knn
+from repro_torch.kernels.vjp import Gathering, IndexProducer
 
 KERNELS = {"fps_blocks": _fps.fps_blocks,
            "ball_query_blocks": _bq.ball_query_blocks,
            "knn_blocks": _knn.knn_blocks,
-           "gather_blocks": _ga.gather_blocks}
+           "gather_blocks": _ga.gather_blocks,
+           "scatter_add_blocks": _ga.scatter_add_blocks}
 
 
 def launch_counts() -> dict:
@@ -72,6 +80,10 @@ def _chunked(fn, arrays, chunk):
     return torch.cat(outs, 0)
 
 
+def _index_producer(fn, arrays, chunk):
+    return IndexProducer.apply(lambda *xs: _chunked(fn, xs, chunk), *arrays)
+
+
 def _pts(x):
     return x.to(torch.float32).contiguous()
 
@@ -85,15 +97,15 @@ def fps_blocks(coords, mask, *, k: int, chunk: int | None = None):
 
     If ``k`` exceeds a block's valid count, the exhausted slots repeat the
     last valid selection (empty blocks repeat index 0)."""
-    return _chunked(lambda c, m: _fps.fps_blocks(c, m, k=k),
-                    (_pts(coords), _mask(mask)), chunk)
+    return _index_producer(lambda c, m: _fps.fps_blocks(c, m, k=k),
+                           (_pts(coords), _mask(mask)), chunk)
 
 
 def ball_query_blocks(centers, cmask, window, wmask, *, radius: float,
                       num: int, chunk: int | None = None):
     """centers (NB,KC,3), cmask (NB,KC), window (NB,W,3), wmask (NB,W)
     -> (idx (NB,KC,num) local-to-window, d2 (NB,KC,num), cnt (NB,KC))."""
-    return _chunked(
+    return _index_producer(
         lambda c, cm, w, wm: _bq.ball_query_blocks(c, cm, w, wm,
                                                    radius=radius, num=num),
         (_pts(centers), _mask(cmask), _pts(window), _mask(wmask)), chunk)
@@ -102,13 +114,16 @@ def ball_query_blocks(centers, cmask, window, wmask, *, radius: float,
 def knn_blocks(queries, window, wmask, *, k: int, chunk: int | None = None):
     """queries (NB,Q,3), window (NB,W,3), wmask (NB,W)
     -> (idx (NB,Q,k) local-to-window, d2 (NB,Q,k))."""
-    return _chunked(lambda q, w, wm: _knn.knn_blocks(q, w, wm, k=k),
-                    (_pts(queries), _pts(window), _mask(wmask)), chunk)
+    return _index_producer(lambda q, w, wm: _knn.knn_blocks(q, w, wm, k=k),
+                           (_pts(queries), _pts(window), _mask(wmask)),
+                           chunk)
 
 
 def gather_blocks(window_feats, idx, *, chunk: int | None = None):
     """window_feats (NB, W, C), idx (NB, M) local-to-window -> (NB, M, C);
-    an index outside [0, W) fetches zeros."""
-    return _chunked(_ga.gather_blocks,
-                    (_pts(window_feats), idx.to(torch.int32).contiguous()),
-                    chunk)
+    an index outside [0, W) fetches zeros.  Differentiable in
+    ``window_feats``; out-of-range rows get no gradient."""
+    return _chunked(
+        lambda f, i: Gathering.apply(_ga.gather_blocks,
+                                     _ga.scatter_add_blocks, f, i),
+        (_pts(window_feats), idx.to(torch.int32).contiguous()), chunk)

@@ -28,21 +28,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import fractal
+from repro_torch.device import resolve_device
 from repro_torch.models import pnn
 from repro_torch.serve.batching import MicroBatch, MicroBatchQueue
 from repro_torch.serve.bucketing import DEFAULT_BUCKETS, BucketPolicy
 from repro_torch.serve.plan_cache import PlanCache
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> the card, raising if there is none; else the given
-    device."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                               "plain versions on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 @dataclasses.dataclass(frozen=True)

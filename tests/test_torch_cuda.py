@@ -7,13 +7,20 @@ machine that has only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 The ladder and the comparison rules are those of
-``repro_torch.kernels.checks``, which chip_smoke.py uses too.
+``repro_torch.kernels.checks``, which chip_smoke.py uses too.  The
+gradient test guards the differentiable gather: every parameter of a small
+``pointnet2_seg`` must learn on the card, as on the CPU.
 """
+import copy
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import checks, fps  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.kernels import checks, fps, ops  # noqa: E402
+from repro_torch.models import pnn  # noqa: E402
+from repro_torch.train import pnn as train  # noqa: E402
 
 
 @pytest.fixture
@@ -52,3 +59,20 @@ def test_wrappers_count_launches_and_check_arguments(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         fps.fps_blocks(c.transpose(0, 1).contiguous().transpose(0, 1), m,
                        k=3)
+
+
+@pytest.mark.cuda
+def test_every_seg_parameter_learns_on_the_card(cuda_device):
+    cfg = train.model_config(train.TrainConfig(preset="pointnet2_seg",
+                                               n_points=1024, th=64))
+    model = pnn.init(cfg, torch.Generator().manual_seed(0))
+    pts, labels = synthetic.segmentation_batch(0, 0, 2, 1024)
+    want, _ = train.grads_fn(model, cfg)(train.param_dict(model),
+                                         {"points": pts, "labels": labels})
+    card = copy.deepcopy(model).to(cuda_device)
+    before = ops.launch_counts()["scatter_add_blocks"]
+    got, _ = train.grads_fn(card, cfg)(train.param_dict(card), {
+        "points": pts.to(cuda_device), "labels": labels.to(cuda_device)})
+    assert ops.launch_counts()["scatter_add_blocks"] == before + 2  # 2 FP
+    assert len(got) == 46
+    checks.hold_grads(got, want)
