@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one CUDA card and the
-CUDA toolkit.  It drives both paths of the port, serving and training.
-Phases, each of which raises on failure:
+CUDA toolkit.  It drives the paths of the port -- serving, training, the
+global (O(n^2)) point ops and room-scale scene segmentation.  Phases, each
+of which raises on failure:
 
 1. the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the float32 matmul settings (TF32 off, "highest");
@@ -15,10 +16,13 @@ Phases, each of which raises on failure:
    its odd ladder (block sizes 65/200/33, empty blocks, all-invalid masks,
    FPS exhaustion, out-of-range gathers, FPS blocks of 1500-5000 lanes,
    1500-lane windows; scatter-adds over 33/128/200-row windows with
-   out-of-range, duplicate and chunked rows) and on the inputs the serving
-   path gives the four forward kernels in one microbatch of the largest
-   bucket, with the kernel's, the plain version's and the PyTorch library
-   call's median times;
+   out-of-range, duplicate and chunked rows; partition levels under all
+   three (da, db) pairs, split values beyond the extents, lanes at the
+   split value, chunked runs) and on the inputs the serving path gives the
+   four forward kernels in one microbatch of the largest bucket, with the
+   kernel's, the plain version's and the PyTorch library call's median
+   times; ``fractal_level_blocks``, on no path, is held and timed on that
+   microbatch's stage-0 leaf blocks, each split at its valid midpoint;
 4. serve 8 mixed-size segmentation requests through ``ServeEngine`` on the
    card (pointnet2 seg, full widths, th=256, buckets 4096/16384/65536,
    microbatch 4, seeded random weights), with every kernel's launch count
@@ -36,7 +40,19 @@ Phases, each of which raises on failure:
    losses, the median step time and the peak device memory;
 8. the kernels on one training step's own inputs (the gather's backward,
    ``scatter_add_blocks``, on that step's cotangents), held and timed as
-   in phase 3, and that step under ``torch.profiler``.
+   in phase 3, and that step under ``torch.profiler``;
+9. the global point ops (``point_ops="global"``, plain tensor ops, no
+   plan): one microbatch of 4 x 16384 clouds through a global
+   ``ServeEngine`` beside the BPPO engine on the same clouds, and the
+   4096-bucket logits held against the same global engine on the CPU;
+10. scene segmentation (``repro_torch.scene``) at the configuration of
+   examples/segment_scene.py (pointnet2 seg, full widths, th=256,
+   tile_points=4096, halo=0.15, microbatch 4): a 16,384-point scene on
+   the card against the CPU (same tiling, logits by the serving rule),
+   then a 1,000,000-point scene from the port's generator, made on the
+   card, with every kernel's launch count read around its inference: each
+   point owned by exactly one tile, finite logits, the times to generate,
+   tile and infer, and the peak device memory.
 
 It then prints a ``{"kernels": [...]}`` line and, last, the device line.
 Without a CUDA card it exits non-zero and prints no result.
@@ -65,6 +81,11 @@ TRAIN_N = 16384          # points a cloud: the middle serving bucket
 TRAIN_BATCH = 8
 TRAIN_STEPS = 20
 PARITY_N = 4096
+GLOBAL_BUCKETS = (4096, 16384)
+SCENE = dict(tile_points=4096, halo=0.15, th=TH, microbatch=MICROBATCH,
+             variant="pointnet2")        # examples/segment_scene.py
+SCENE_SMALL_N = 16_384
+SCENE_N = 1_000_000
 # H100 SXM published rates (NVIDIA data sheet): HBM3 bytes/s and fp32
 # (non-tensor-core) operations/s.  Comparisons and selects count as fp32
 # operations.
@@ -79,10 +100,13 @@ REPLACES = {
     "knn_blocks": "src/repro/kernels/knn.py:31",
     "gather_blocks": "src/repro/kernels/gather.py:30",
     "scatter_add_blocks": "src/repro/kernels/gather.py:65",
+    "fractal_level_blocks": "src/repro/kernels/fractal_engine.py:47",
 }
 SERVING = ("fps_blocks", "ball_query_blocks", "knn_blocks", "gather_blocks")
+TRAINING = SERVING + ("scatter_add_blocks",)
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name.rsplit('_', 1)[0]}.cu"
            for name in REPLACES}
+LEVEL_DIMS_TIMED = (0, 1)   # the (da, db) pair whose leaf-block call is timed
 
 
 def log(msg=""):
@@ -157,6 +181,15 @@ def work(name: str, args: dict) -> tuple[float, float]:
             ops += float((cm.sum(1) * nv).sum()) * 2.0   # radius test, count
             nbytes += cm.numel() + nb * nq * 4
         return nbytes, ops
+    if name == "fractal_level_blocks":
+        # reads the mask, the split values and two coordinates of each
+        # valid lane; writes the side bits, counts and four extrema; a
+        # valid lane costs a compare, a count and two min/max
+        m = args["mask"]
+        nb, bs = m.shape
+        nv = int(m.sum())
+        return (m.numel() + nb * 4 + nv * 8 + nb * bs * 4 + nb * 4
+                + nb * 16, float(nv) * 4.0)
     if name == "scatter_add_blocks":
         # reads the indices and each in-range cotangent row, writes the
         # whole window tile; one add per in-range (row, channel)
@@ -271,6 +304,9 @@ def shape_of(name, args):
     if name == "scatter_add_blocks":
         nb, m, c = args["g"].shape
         return f"NB={nb} W={args['w']} C={c} M={m}"
+    if name == "fractal_level_blocks":
+        nb, bs = args["mask"].shape
+        return f"NB={nb} BS={bs} da={args['da']} db={args['db']}"
     nb, nq = args["q"].shape[:2]
     return f"NB={nb} Q={nq} W={args['window'].shape[1]} k={args['num']}"
 
@@ -426,29 +462,42 @@ def phase_serve(engine):
     return clouds, results, launches
 
 
-def phase_cpu_reference(engine, clouds, results):
-    """The 4096-bucket requests again on the CPU (plain versions, same
-    weights): |logit difference| <= LOGIT_TOL on >= LOGIT_SHARE of points."""
-    import copy
-    small = [(i, c) for i, c in enumerate(clouds) if len(c) <= BUCKETS[0]]
-    cpu = make_engine("cpu", params=copy.deepcopy(engine.params).cpu())
-    rids = [cpu.submit(c) for _, c in small]
-    cpu.flush()
+def hold_logits(pairs, title: str) -> None:
+    """Card logits against CPU logits, (got, want) per cloud: |difference|
+    <= LOGIT_TOL on >= LOGIT_SHARE of the points, or raise."""
     total = over = 0
     worst = 0.0
-    for (i, c), rid in zip(small, rids):
-        want = cpu.take(rid)
-        got = results[i]
+    for got, want in pairs:
+        if got.shape != want.shape:
+            raise AssertionError(f"{title}: shapes {got.shape} vs "
+                                 f"{want.shape}")
         diff = np.abs(got - want).max(-1)
         total += len(diff)
         over += int((diff > LOGIT_TOL).sum())
         worst = max(worst, float(diff.max()))
     share = 1.0 - over / total
-    log(f"4096 bucket, card vs CPU: {len(small)} clouds, {total} points, "
+    log(f"{title}, card vs CPU: {len(pairs)} clouds, {total} points, "
         f"{over} over {LOGIT_TOL} (share within {share:.6f}), max |d| "
         f"{worst:.3g}")
     if share < LOGIT_SHARE:
-        raise AssertionError("card and CPU logits disagree")
+        raise AssertionError(f"{title}: card and CPU logits disagree")
+
+
+def serve_on_cpu(cpu, clouds) -> list:
+    rids = [cpu.submit(c) for c in clouds]
+    cpu.flush()
+    return [cpu.take(rid) for rid in rids]
+
+
+def phase_cpu_reference(engine, clouds, results):
+    """The 4096-bucket requests again on the CPU (plain versions, same
+    weights), held by ``hold_logits``."""
+    import copy
+    small = [i for i, c in enumerate(clouds) if len(c) <= BUCKETS[0]]
+    cpu = make_engine("cpu", params=copy.deepcopy(engine.params).cpu())
+    wants = serve_on_cpu(cpu, [clouds[i] for i in small])
+    hold_logits([(results[i], w) for i, w in zip(small, wants)],
+                "4096 bucket")
 
 
 def phase_289k(engine):
@@ -469,6 +518,31 @@ def phase_289k(engine):
         raise AssertionError(f"289k forward: bad output {out.shape}")
     log(f"289k cloud: pnn.apply {dt * 1e3:.1f} ms, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def phase_level_kernel() -> dict:
+    """``fractal_level_blocks`` (on no path) on the main path's own blocks:
+    the stage-0 leaf blocks of one microbatch of the largest bucket (the
+    clouds of ``phase_main_path_kernels``), each split at its valid
+    midpoint on ``da``.  Held for every (da, db) pair, timed for one."""
+    import torch
+    from repro_torch.core import fractal
+    from repro_torch.kernels import checks
+    b = BUCKETS[-1]
+    clouds = torch.from_numpy(np.stack(
+        [clustered_cloud(b, 100 + i) for i in range(MICROBATCH)])).cuda()
+    part = fractal.partition(clouds, th=TH, on_overflow="silent")
+    view, mask, _ = fractal.leaf_view(part, part.coords, TH)
+    calls = []
+    for da, db in checks.LEVEL_DIMS:
+        args = checks.level_at_midpoints(view, mask, da, db)
+        checks.hold("fractal_level_blocks", args)
+        if (da, db) == LEVEL_DIMS_TIMED:
+            calls.append(("fractal_level_blocks", args))
+    log(f"fractal_level_blocks on {MICROBATCH}x{b} leaf blocks "
+        f"({int(mask.sum())} valid lanes): all three (da, db) pairs equal "
+        f"their plain versions")
+    return hold_and_time(calls)
 
 
 def phase_profile(engine):
@@ -498,7 +572,7 @@ def report_profile(prof, wall_us: float, title: str, top: int = 8):
     # The kernels of csrc/ live in an anonymous namespace.
     ported = tuple(f"(anonymous namespace)::{k}_kernel"
                    for k in ("fps", "ball_query", "knn", "gather",
-                             "scatter_add"))
+                             "scatter_add", "fractal_level"))
     dev = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -517,6 +591,159 @@ def report_profile(prof, wall_us: float, title: str, top: int = 8):
         f"{launches} device ops, ported kernels {mine / 1e3:.2f} ms")
     for us, count, key in dev[:top]:
         log(f"    {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# The global point ops and scene segmentation.
+# ---------------------------------------------------------------------------
+
+def global_engine(device, params):
+    from repro_torch.serve import ServeConfig, ServeEngine
+    cfg = ServeConfig(buckets=GLOBAL_BUCKETS, microbatch=MICROBATCH,
+                      variant="pointnet2", task="seg", num_classes=6, th=TH,
+                      point_ops="global")
+    return ServeEngine(cfg, params=params, seed=SEED, device=device)
+
+
+def serve_timed(engine, clouds) -> tuple[list, float]:
+    """One microbatch through ``engine``: (logits per cloud, wall s)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rids = [engine.submit(c) for c in clouds]
+    engine.flush()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return [engine.take(rid) for rid in rids], wall
+
+
+def phase_global(engine):
+    """The global (O(n^2)) point ops through a plan-less ``ServeEngine``:
+    one microbatch of 4 x 16384 clouds beside the BPPO engine on the same
+    clouds (turns: bppo, global, global, bppo), with every kernel's launch
+    count read around a global run; then the 4096-bucket logits held
+    against the same engine on the CPU."""
+    import copy
+    from repro_torch.kernels import ops
+    geng = global_engine(None, engine.params)
+    log(f"global warm: {geng.warm()}")
+    b = GLOBAL_BUCKETS[-1]
+    clouds = [clustered_cloud(b, 700 + i) for i in range(MICROBATCH)]
+    walls = {"bppo": [], "global": []}
+    for kind in ("bppo", "global", "global", "bppo"):
+        ops.reset_launch_counts()
+        outs, wall = serve_timed(engine if kind == "bppo" else geng, clouds)
+        walls[kind].append(wall)
+        if kind == "global":
+            launches, gouts = ops.launch_counts(), outs
+        else:
+            bouts = outs
+    for o in gouts:
+        if o.shape != (b, 6) or not np.isfinite(o).all():
+            raise AssertionError(f"global serving: bad logits {o.shape}")
+    agree = np.mean([(g.argmax(-1) == p.argmax(-1)).mean()
+                     for g, p in zip(gouts, bouts)])
+    log(f"{MICROBATCH}x{b} microbatch: global "
+        + " / ".join(f"{w * 1e3:.1f}" for w in walls["global"])
+        + " ms, bppo " + " / ".join(f"{w * 1e3:.1f}" for w in walls["bppo"])
+        + f" ms; argmax agreement global vs bppo {agree:.4f} (random "
+        f"weights); launches during a global microbatch: {launches}")
+    b0 = GLOBAL_BUCKETS[0]
+    small = [clustered_cloud(n, 800 + i)
+             for i, n in enumerate((b0, 3 * b0 // 4, b0, b0 // 2))]
+    got, _ = serve_timed(geng, small)
+    t0 = time.monotonic()
+    want = serve_on_cpu(global_engine(
+        "cpu", copy.deepcopy(engine.params).cpu()), small)
+    log(f"global {b0} bucket on the CPU: {time.monotonic() - t0:.1f} s")
+    hold_logits(list(zip(got, want)), f"global {b0} bucket")
+
+
+def scene_engine(device, params):
+    from repro_torch.scene import SceneConfig, SceneEngine
+    return SceneEngine(SceneConfig(**SCENE), params=params, seed=SEED,
+                       device=device)
+
+
+def phase_scene_small(eng):
+    """A 16,384-point scene on the card and on the CPU (plain versions,
+    same weights): the same tiling, logits by ``hold_logits``."""
+    import copy
+    from repro_torch.data import synthetic
+    pts, _ = synthetic.scene(SEED, SCENE_SMALL_N, device="cuda")
+    got, plan = eng.infer(pts)
+    t0 = time.monotonic()
+    want, cplan = scene_engine("cpu", copy.deepcopy(eng.params).cpu()).infer(
+        pts.cpu())
+    cpu_s = time.monotonic() - t0
+    same = plan.num_tiles == cplan.num_tiles and all(
+        np.array_equal(a.owned, b.owned) and np.array_equal(a.halo, b.halo)
+        for a, b in zip(plan.tiles, cplan.tiles))
+    log(f"scene {SCENE_SMALL_N}: {plan.num_tiles} tiles, "
+        f"{plan.halo_points} halo points, tiling card == CPU: {same}; CPU "
+        f"took {cpu_s:.1f} s")
+    if not same:
+        raise AssertionError("the card and the CPU tile the scene apart")
+    hold_logits([(got, want)], f"scene {SCENE_SMALL_N}")
+
+
+def phase_scene_1m(eng) -> dict:
+    """The slice's main path: a 1,000,000-point scene generated on the
+    card, tiled, and segmented through ``SceneEngine.infer``, with every
+    kernel's launch count read around the inference."""
+    import torch
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    pts, labels = synthetic.scene(SEED, SCENE_N, device="cuda")
+    torch.cuda.synchronize()
+    gen_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    plan = eng.plan(pts)
+    tile_s = time.monotonic() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    logits, _ = eng.infer(pts, plan=plan)
+    torch.cuda.synchronize()
+    infer_s = time.monotonic() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    owned = np.bincount(np.concatenate([t.owned for t in plan.tiles]),
+                        minlength=SCENE_N)
+    if owned.shape != (SCENE_N,) or not (owned == 1).all():
+        raise AssertionError(f"1M scene: {int((owned != 1).sum())} points "
+                             f"not owned exactly once")
+    if logits.shape != (SCENE_N, 6) or not np.isfinite(logits).all():
+        raise AssertionError(f"1M scene: bad logits {logits.shape}")
+    sizes = [t.n for t in plan.tiles]
+    st = eng.stats()
+    log(f"scene {SCENE_N}: {plan.num_tiles} tiles (owned points per tile "
+        f"{min(t.n_owned for t in plan.tiles)}-"
+        f"{max(t.n_owned for t in plan.tiles)}), {plan.halo_points} halo "
+        f"points, largest tile cloud {plan.max_tile_n}, mean "
+        f"{np.mean(sizes):.0f}; {len(np.unique(labels.cpu().numpy()))} "
+        f"shape classes")
+    log(f"scene {SCENE_N}: generate {gen_s:.3f} s, tile {tile_s:.3f} s, "
+        f"infer {infer_s:.3f} s ({SCENE_N / infer_s:,.0f} points/s; "
+        f"{SCENE_N / (tile_s + infer_s):,.0f} points/s with tiling), peak "
+        f"device memory during inference {peak:.2f} GiB; tile latency p50 "
+        + " / ".join(f"{b}: {v['p50_ms']:.1f} ms x{v['count']}"
+                     for b, v in st["buckets"].items()))
+    log(f"launches during the 1M scene: {launches}")
+    idle = [k for k in SERVING if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the scene path: "
+                             f"{idle}")
+    return launches
+
+
+def phase_scene(params) -> dict:
+    eng = scene_engine(None, params)
+    log(f"scene warm: {eng.warm()}")
+    phase_scene_small(eng)
+    return phase_scene_1m(eng)
 
 
 # ---------------------------------------------------------------------------
@@ -602,7 +829,7 @@ def phase_train():
     log(f"mean loss, first 5 steps {first:.4f}, last 5 steps {last:.4f}")
     if not last < first:
         raise AssertionError("training: the loss did not fall")
-    idle = [k for k, v in launches.items() if v == 0]
+    idle = [k for k in TRAINING if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels not launched in training: {idle}")
     return cfg, model, state, launches
@@ -679,6 +906,9 @@ def main() -> int:
     phase_cpu_reference(engine, clouds, results)
     phase_289k(engine)
     phase_profile(engine)
+    rows.update(phase_level_kernel())
+    phase_global(engine)
+    scene_launches = phase_scene(engine.params)
     del engine
     phase_grad_parity(PARITY_N, 1)
     phase_grad_parity(TRAIN_N, TRAIN_BATCH)
@@ -697,10 +927,13 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bms, "bound_by": by, "library_ms": r["library_ms"]})
     log(f"(kernel ms, plain_ms, bound_ms, library_ms: sums over the calls "
-        f"of the {MICROBATCH}x{BUCKETS[-1]} serving microbatch, and for "
-        f"scatter_add_blocks of one {TRAIN_BATCH}x{TRAIN_N} training step; "
-        f"launches: the serving run, and for scatter_add_blocks the "
-        f"{TRAIN_STEPS} training steps; card: {smi}; total "
+        f"of the {MICROBATCH}x{BUCKETS[-1]} serving microbatch, for "
+        f"scatter_add_blocks of one {TRAIN_BATCH}x{TRAIN_N} training step, "
+        f"and for fractal_level_blocks one call on that microbatch's leaf "
+        f"blocks, (da, db) = {LEVEL_DIMS_TIMED}; launches: the serving run, "
+        f"for scatter_add_blocks the {TRAIN_STEPS} training steps "
+        f"(fractal_level_blocks is on no path); launches in the 1M scene "
+        f"run: {scene_launches}; card: {smi}; total "
         f"{time.monotonic() - t_start:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,7 @@ SIGNATURES = {
     "fc_knn_blocks": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fc_gather_blocks": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fc_scatter_add_blocks": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "fc_fractal_level_blocks": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None

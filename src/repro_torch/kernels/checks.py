@@ -14,6 +14,11 @@ and 768 cotangent rows, 9, 64 and 128 channels, indices below 0, at or
 above W and the -1 padding, a block whose rows all land on one slot, a
 block whose rows all fall outside, no blocks at all, and a run chunked
 through ``ops.gather_blocks``' autograd node against an unchunked one.
+The partition level, ``fractal_level_blocks``, has its own too
+(``level_ladder``): the same block sizes and masks under all three
+``(da, db)`` pairs, a split value beyond the extents on either side (one
+side empty), lanes exactly at the split value, and a run chunked through
+``ops.fractal_level_blocks`` against an unchunked one.
 
 Rules:
 
@@ -24,6 +29,9 @@ Rules:
   version in f32 (as the two JAX paths do), so a row's count may differ by
   at most the number of its valid lanes whose distance lies within
   ``D2_TOL`` of r^2 (``check_counts``);
+* the partition level must match exactly: side bits, left counts and child
+  extrema compared with ``==`` (min, max and a count do not depend on the
+  order of the lanes; ``==`` holds -0 equal to +0);
 * scatter-add within ``SUM_TOL`` (absolute and relative).  CUDA's own
   ``scatter_add_`` adds with atomics in no fixed order, so the plain
   version scatters one row position at a time and sums each cell's rows
@@ -41,14 +49,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import ball_query, fps, gather, knn, ops
+from repro_torch.kernels import (ball_query, fps, fractal_level, gather, knn,
+                                 ops)
 from repro_torch.kernels.common import INF, sqdist_rows
 
 D2_TOL = 1e-5
 SUM_TOL = 1e-5
 GRAD_REL_TOL = 1e-3
 KERNELS = ("fps_blocks", "ball_query_blocks", "knn_blocks", "gather_blocks",
-           "scatter_add_blocks")
+           "scatter_add_blocks", "fractal_level_blocks")
+LEVEL_DIMS = ((0, 1), (1, 2), (2, 0))
 
 
 def blocks(seed, nb, bs, device, empty=0, invalid=False):
@@ -99,7 +109,7 @@ def ladder(device) -> list:
     calls.append(("ball_query_blocks", dict(q=cen, cmask=cm, window=c,
                                             wmask=m, radius=0.5, num=16)))
     calls.append(("knn_blocks", dict(q=cen, window=c, wmask=m, num=3)))
-    return calls + scatter_ladder(device)
+    return calls + scatter_ladder(device) + level_ladder(device)
 
 
 def scatter_ladder(device) -> list:
@@ -130,6 +140,51 @@ def scatter_ladder(device) -> list:
     return calls
 
 
+def level_ladder(device) -> list:
+    """[("fractal_level_blocks", arguments)] of the partition-level cases."""
+    calls = []
+    for nb, bs in [(3, 65), (2, 200), (5, 33)]:
+        for empty, invalid in [(0, False), (1, False), (0, True)]:
+            c, m = blocks(6, nb, bs, device, empty, invalid)
+            mid = torch.from_numpy(np.random.default_rng(7).normal(
+                0, 0.5, nb).astype(np.float32)).to(device)
+            for da, db in LEVEL_DIMS:
+                calls.append(("fractal_level_blocks", dict(
+                    coords=c, mask=m, mid=mid, da=da, db=db)))
+    c, m = blocks(8, 4, 65, device, empty=1)
+    for da, db in LEVEL_DIMS:
+        for far in (1e3, -1e3):                  # one side empty
+            calls.append(("fractal_level_blocks", dict(
+                coords=c, mask=m, mid=torch.full((4,), far, device=device),
+                da=da, db=db)))
+        tied = c.clone()                         # lanes exactly at mid
+        mid = torch.tensor([0.25, -0.5, 0.0, 1.5], device=device)
+        tied[:, ::3, da] = mid[:, None]
+        calls.append(("fractal_level_blocks", dict(
+            coords=tied, mask=m, mid=mid, da=da, db=db)))
+    c, m = blocks(9, 7, 200, device, empty=1)
+    mid = torch.from_numpy(np.random.default_rng(10).normal(
+        0, 0.5, 7).astype(np.float32)).to(device)
+    calls.append(("fractal_level_blocks", dict(
+        coords=c, mask=m, mid=mid, da=1, db=2, chunk=3)))
+    return calls
+
+
+def level_at_midpoints(coords, mask, da: int, db: int) -> dict:
+    """Arguments of one ``fractal_level_blocks`` call on blocks ``coords``
+    (..., BS, 3) with ``mask`` (..., BS), flattened to (NB, BS), each block
+    split at the midpoint of its valid lanes on ``da`` (0 for a block with
+    none): the split the partition makes next at such a node."""
+    bs = mask.shape[-1]
+    c = coords.reshape(-1, bs, 3).contiguous()
+    m = mask.reshape(-1, bs).contiguous()
+    xa = c[..., da]
+    lo = torch.where(m, xa, INF).amin(-1)
+    hi = torch.where(m, xa, -INF).amax(-1)
+    mid = torch.where(m.any(-1), (lo + hi) * 0.5, 0.0)
+    return dict(coords=c, mask=m, mid=mid, da=da, db=db)
+
+
 def _gather_grad(g, idx, w, chunk):
     """The window's gradient through ``ops.gather_blocks`` with ``chunk``:
     one ``Gathering`` node, and so one scatter-add, per chunk."""
@@ -154,6 +209,15 @@ def runners(name: str, args: dict):
         return ((lambda: _gather_grad(g, i, w, chunk)) if chunk
                 else (lambda: gather.scatter_add_blocks(g, i, w=w)),
                 lambda: gather.scatter_add_plain(g, i, w=w))
+    if name == "fractal_level_blocks":
+        c, m, mid = args["coords"], args["mask"], args["mid"]
+        kw = dict(da=args["da"], db=args["db"])
+        chunk = args.get("chunk")
+        return ((lambda: ops.fractal_level_blocks(c, m, mid, chunk=chunk,
+                                                  **kw)) if chunk
+                else (lambda: fractal_level.fractal_level_blocks(c, m, mid,
+                                                                 **kw)),
+                lambda: fractal_level.fractal_level_plain(c, m, mid, **kw))
     q, w, wm, num = args["q"], args["window"], args["wmask"], args["num"]
     if name == "ball_query_blocks":
         cm, r = args["cmask"], args["radius"]
@@ -223,6 +287,13 @@ def hold(name: str, args: dict, tol: float = D2_TOL) -> dict:
         torch.testing.assert_close(got, want, atol=SUM_TOL, rtol=SUM_TOL)
         err = float((got - want).abs().max()) if got.numel() else 0.0
         return {"max_abs_err": err, "near_tie_flips": 0, "count_rows": 0}
+    if name == "fractal_level_blocks":
+        for part, a, b in zip(("side", "left_count", "child_stats"), got,
+                              want):
+            if a.shape != b.shape or not bool((a == b).all()):
+                raise AssertionError(f"fractal_level_blocks: {part} differs "
+                                     f"from its plain version")
+        return {"max_abs_err": 0.0, "near_tie_flips": 0, "count_rows": 0}
     if name in ("fps_blocks", "gather_blocks"):
         if not torch.equal(got, want):
             raise AssertionError(f"{name} differs from its plain version at "

@@ -14,7 +14,8 @@ Every op carries its gradient rule (``kernels/vjp.py``) on both devices:
 ``gather_blocks`` differentiates in its features, its backward the
 ``scatter_add_blocks`` kernel (chunked as the forward was, one
 ``Gathering`` node per chunk); FPS, ball query and kNN are index producers
-that pass no gradient on.
+that pass no gradient on, and so is ``fractal_level_blocks``, whose side
+bits, counts and child extrema get zero cotangents.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.kernels import ball_query as _bq
 from repro_torch.kernels import fps as _fps
+from repro_torch.kernels import fractal_level as _fl
 from repro_torch.kernels import gather as _ga
 from repro_torch.kernels import knn as _knn
 from repro_torch.kernels.vjp import Gathering, IndexProducer
@@ -30,7 +32,8 @@ KERNELS = {"fps_blocks": _fps.fps_blocks,
            "ball_query_blocks": _bq.ball_query_blocks,
            "knn_blocks": _knn.knn_blocks,
            "gather_blocks": _ga.gather_blocks,
-           "scatter_add_blocks": _ga.scatter_add_blocks}
+           "scatter_add_blocks": _ga.scatter_add_blocks,
+           "fractal_level_blocks": _fl.fractal_level_blocks}
 
 
 def launch_counts() -> dict:
@@ -127,3 +130,15 @@ def gather_blocks(window_feats, idx, *, chunk: int | None = None):
         lambda f, i: Gathering.apply(_ga.gather_blocks,
                                      _ga.scatter_add_blocks, f, i),
         (_pts(window_feats), idx.to(torch.int32).contiguous()), chunk)
+
+
+def fractal_level_blocks(coords, mask, mid, *, da: int, db: int,
+                         chunk: int | None = None):
+    """coords (NB,BS,3), mask (NB,BS), mid (NB,) -> (side (NB,BS) int32,
+    left_count (NB,) int32, child_stats (NB,4) f32 = [lmin_b, lmax_b,
+    rmin_b, rmax_b]): one partition level per block, split on ``da`` at
+    ``mid`` (a lane at ``mid`` goes left), extrema of ``db`` per side."""
+    return _index_producer(
+        lambda c, m, md: _fl.fractal_level_blocks(c, m, md, da=da, db=db),
+        (_pts(coords), _mask(mask), mid.to(torch.float32).contiguous()),
+        chunk)

@@ -7,10 +7,11 @@ names and list positions mirror the JAX parameter tree, so
 ``repro_torch.convert`` can copy one into the other; a dense layer keeps
 the JAX layout ``x @ w + b`` with ``w`` of shape ``(din, dout)``.
 
-Only ``point_ops="bppo"`` is ported: Fractal partition + block-parallel
-point ops, whose execute steps run the hand-written kernels on the card
-and their plain versions on the CPU.  ``point_ops="global"`` (the O(n^2)
-baseline of ``repro.core.ref``) raises ``NotImplementedError``.
+Two kinds of point ops: ``point_ops="bppo"``, Fractal partition +
+block-parallel point ops, whose execute steps run the hand-written kernels
+on the card and their plain versions on the CPU; and ``"global"``, the
+O(n^2) baseline of ``core/ref.py`` (the paper's "Original"), plain tensor
+ops on either device, as the JAX package computes it.
 
 Variants: ``pointnet2`` (group -> shared MLP -> max-pool), ``pointnext``
 (+ inverted-residual MLP blocks after pooling), ``pointvector`` (learned
@@ -23,7 +24,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from repro_torch.core import bppo
+from repro_torch.core import bppo, ref
 from repro_torch.core.fractal import partition, take
 
 
@@ -49,7 +50,7 @@ class PNNConfig:
     )
     fp_widths: tuple = ((128, 64), (64, 64))   # seg only, reversed order
     head_widths: tuple = (128,)
-    point_ops: str = "global"        # global (not ported) | bppo
+    point_ops: str = "global"        # global | bppo
     th: int = 64                     # Fractal threshold
     strategy: str = "fractal"        # partition strategy, every stage
     num_blocks: int = 1              # extra residual blocks (pointnext)
@@ -171,7 +172,21 @@ def _stage_points(cfg: PNNConfig, stage: SAStage, coords, feats, valid,
     """One sampling + grouping + gathering round over B clouds.  Returns
     (centers (B, n_out, 3), grouped (B, n_out, nsample, C+3), gmask,
     new_valid, ctx); ``part`` optionally supplies a precomputed partition
-    of (coords, valid) -- the serving plan."""
+    of (coords, valid) -- the serving plan (bppo only)."""
+    if cfg.point_ops == "global":
+        sidx, svalid = ref.fps(coords, valid, n_out)
+        centers = take(coords, sidx)
+        nidx, cnt = ref.ball_query(coords, valid, centers, svalid,
+                                   stage.radius, stage.nsample)
+        slot = torch.arange(stage.nsample, device=coords.device)
+        gmask = slot < cnt.clamp(max=stage.nsample)[..., None]
+        gmask = gmask & svalid[..., None]
+        gmask = torch.cat([svalid[..., None], gmask[..., 1:]], -1)
+        rel = take(coords, nidx) - centers[:, :, None, :]
+        gfeats = torch.cat([rel, take(feats, nidx)], -1)
+        ctx = {"mode": "global", "coords": coords, "centers": centers,
+               "svalid": svalid}
+        return centers, gfeats, gmask, svalid, ctx
     if part is None:
         part = partition(coords, valid, th=cfg.th, strategy=cfg.strategy,
                          on_overflow="silent")
@@ -184,11 +199,16 @@ def _stage_points(cfg: PNNConfig, stage: SAStage, coords, feats, valid,
     rel = bppo.gather(part.coords, nb.idx) - centers[:, :, None, :]
     gmask = torch.cat([samp.valid[..., None], nb.mask[..., 1:]], -1)
     gfeats = torch.cat([rel, bppo.gather(feats_sorted, nb.idx)], -1)
-    return centers, gfeats, gmask, samp.valid, {"part": part, "samp": samp}
+    return centers, gfeats, gmask, samp.valid, {"mode": "bppo", "part": part,
+                                                "samp": samp}
 
 
 def _propagate(cfg: PNNConfig, ctx, coarse_feats, fine_feats):
     """FP stage: interpolate coarse feats onto the fine cloud (3-NN IDW)."""
+    if ctx["mode"] == "global":
+        out, _, _ = ref.interpolate_3nn(ctx["coords"], ctx["centers"],
+                                        ctx["svalid"], coarse_feats)
+        return torch.cat([out, fine_feats], -1)
     part, samp = ctx["part"], ctx["samp"]
     wc = max(16, int(2 * cfg.th * cfg.stages[0].rate))
     out_sorted, _, _ = bppo.blockwise_interpolate(
@@ -222,10 +242,11 @@ def apply(params: PNN, cfg: PNNConfig, coords: torch.Tensor,
 
     cls: (B, num_classes) logits.  seg: (B, n, num_classes) per point.
     ``part0`` optionally injects a precomputed stage-0 ``FractalPartition``
-    of (coords, valid), as the serving plan cache does."""
-    if cfg.point_ops != "bppo":
-        raise NotImplementedError(
-            f"point_ops={cfg.point_ops!r}: only 'bppo' is ported")
+    of (coords, valid), as the serving plan cache does (bppo only; the
+    global ops ignore it)."""
+    if cfg.point_ops not in ("bppo", "global"):
+        raise ValueError(f"point_ops must be 'bppo' or 'global', got "
+                         f"{cfg.point_ops!r}")
     b, n = coords.shape[:2]
     if valid is None:
         valid = torch.ones((b, n), dtype=torch.bool, device=coords.device)

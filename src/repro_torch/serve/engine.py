@@ -7,7 +7,9 @@ Counterpart of ``repro.serve.engine`` for one device:
   (``batching``); partial batches are padded with all-invalid clouds, so a
   bucket's forward always sees one shape;
 * a plan cache holds one partition plan per (bucket, th, strategy) and one
-  forward per (bucket, impl) (``plan_cache``);
+  forward per (bucket, impl) (``plan_cache``); with ``point_ops="global"``
+  there is no plan: the forward runs the O(n^2) global ops on the padded
+  clouds and ignores ``dim0``;
 * a microbatch runs as one batched forward: the partition and every point
   op work on ``(B, n, ...)``, and each kernel launches once per stage over
   the ``B * ML`` leaf blocks of the microbatch.
@@ -47,7 +49,7 @@ class ServeConfig:
     num_classes: int = 6
     th: int = 256                  # fractal threshold (plan-cache key part)
     strategy: str = "fractal"      # partition strategy (plan-cache key part)
-    point_ops: str = "bppo"        # bppo (global is not ported)
+    point_ops: str = "bppo"        # bppo | global (global: no plan/dim0)
     leaf_chunk: int | None = None
     stages: tuple | None = None    # override PNNConfig.stages
     fp_widths: tuple | None = None  # override PNNConfig.fp_widths
@@ -121,9 +123,11 @@ class ServeEngine:
         return self.plans.get(key, build)
 
     def _forward(self, bucket, clouds, valid, dim0):
-        """One microbatch on the device; returns (logits, partition)."""
+        """One microbatch on the device; returns (logits, partition), the
+        partition None for the global ops, which have no plan."""
         with torch.inference_mode():
-            part = self._plan_fn(bucket)(clouds, valid, dim0)
+            part = (self._plan_fn(bucket)(clouds, valid, dim0)
+                    if self.cfg.point_ops == "bppo" else None)
             out = self._serve_fn(bucket)(self.params, clouds, valid, part)
         return out, part
 
@@ -194,7 +198,7 @@ class ServeEngine:
                                   dim0.to(self.device))
         out = out.cpu().numpy()           # the microbatch's one sync
         t_done = self._clock() if now is None else now
-        if self.cfg.on_overflow == "warn":
+        if part is not None and self.cfg.on_overflow == "warn":
             fractal.warn_if_overflowed(
                 part, th=self.cfg.th,
                 depth=fractal.default_depth(bucket, self.cfg.th))

@@ -44,7 +44,7 @@ class TrainConfig:
     preset: str = "pointnet2_cls"
     n_points: int = 192
     th: int = 32
-    point_ops: str = "bppo"          # bppo (global is not ported)
+    point_ops: str = "bppo"          # bppo | global
     batch: int = 8
     steps: int = 20
     lr: float = 3e-3
@@ -160,6 +160,7 @@ def main(argv=None):
                     choices=sorted(PRESETS))
     ap.add_argument("--n", type=int, default=192)
     ap.add_argument("--th", type=int, default=32)
+    ap.add_argument("--point-ops", default="bppo", choices=["bppo", "global"])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--lr", type=float, default=3e-3)
@@ -172,7 +173,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = TrainConfig(preset=args.preset, n_points=args.n, th=args.th,
-                      batch=args.batch, steps=args.steps, lr=args.lr,
+                      point_ops=args.point_ops, batch=args.batch, steps=args.steps, lr=args.lr,
                       seed=args.seed, leaf_chunk=args.leaf_chunk,
                       ckpt_dir=args.ckpt, device=args.device)
     _, _, info = fit(cfg)

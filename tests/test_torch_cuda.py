@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import fractal  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import checks, fps, ops  # noqa: E402
 from repro_torch.models import pnn  # noqa: E402
@@ -59,6 +60,22 @@ def test_wrappers_count_launches_and_check_arguments(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         fps.fps_blocks(c.transpose(0, 1).contiguous().transpose(0, 1), m,
                        k=3)
+
+
+@pytest.mark.cuda
+def test_level_kernel_on_partition_leaves(cuda_device):
+    """The partition level on a partition's own leaf blocks, each split at
+    its valid midpoint, for every (da, db): equal to the plain version, one
+    launch a call."""
+    pts, _ = synthetic.scene(0, 8192, device=cuda_device)
+    part = fractal.partition(pts[None], th=256)
+    view, mask, _ = fractal.leaf_view(part, part.coords, 256)
+    for da, db in checks.LEVEL_DIMS:
+        args = checks.level_at_midpoints(view, mask, da, db)
+        before = ops.launch_counts()["fractal_level_blocks"]
+        checks.hold("fractal_level_blocks", args)
+        assert ops.launch_counts()["fractal_level_blocks"] == before + 1
+        assert bool(args["mask"].any())
 
 
 @pytest.mark.cuda

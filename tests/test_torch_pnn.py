@@ -97,9 +97,19 @@ def test_layer_norm_is_population_variance():
 
 
 def test_global_point_ops_not_ported():
+    """The presets' default ``point_ops="global"`` runs (it is ported now;
+    tests/test_torch_pnn_global.py holds it against JAX); a name that is
+    neither kind of point op is refused."""
     cfg = pnn.pointnet2_cls(n=64)
-    with pytest.raises(NotImplementedError, match="bppo"):
-        pnn.apply(pnn.init(cfg), cfg, torch.zeros((1, 64, 3)))
+    assert cfg.point_ops == "global"
+    pts = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 1, (1, 64, 3)).astype(np.float32))
+    with torch.no_grad():
+        out = pnn.apply(pnn.init(cfg), cfg, pts)
+    assert out.shape == (1, 6) and bool(torch.isfinite(out).all())
+    bad = dataclasses.replace(cfg, point_ops="octree")
+    with pytest.raises(ValueError, match="point_ops"):
+        pnn.apply(pnn.init(bad), bad, pts)
 
 
 def test_presets_mirror_jax():
