@@ -14,8 +14,10 @@ of which raises on failure:
 3. hold each hand-written kernel against its plain PyTorch version on the
    same CUDA tensors, by the rules of ``repro_torch.kernels.checks``: on
    its odd ladder (block sizes 65/200/33, empty blocks, all-invalid masks,
-   FPS exhaustion, out-of-range gathers, FPS blocks of 1500-5000 lanes,
-   1500-lane windows; scatter-adds over 33/128/200-row windows with
+   FPS exhaustion, out-of-range gathers, FPS blocks of 1500-20,000 lanes,
+   1500-lane windows; ball query and kNN on scattered masks, 1-15 valid
+   lanes at num=16, num/k of 1/3/16/40, windows of 8,192 and 20,000
+   lanes and duplicated lattice points, exactly; scatter-adds over 33/128/200-row windows with
    out-of-range, duplicate and chunked rows; partition levels under all
    three (da, db) pairs, split values beyond the extents, lanes at the
    split value, chunked runs) and on the inputs the serving path gives the
@@ -91,6 +93,7 @@ SCENE_N = 1_000_000
 # operations.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+SLEEP_CYCLES_PER_S = 2.0e9   # at or above the H100's SM clock (1.98 GHz)
 LOGIT_TOL = 1e-3      # card vs CPU: float32 matmuls sum in another order
 LOGIT_SHARE = 0.999   # share of points within LOGIT_TOL
 
@@ -128,19 +131,35 @@ def clustered_cloud(n: int, seed: int) -> np.ndarray:
 # Timing and bounds.
 # ---------------------------------------------------------------------------
 
-def median_ms(fn, reps: int, warmup: int = 2) -> float:
+def median_ms(fn, reps: int, warmup: int = 2, batch: int = 10) -> float:
+    """The card's time for one call of ``fn``: the median over ``reps``
+    samples of ``batch`` calls between two CUDA events, divided by
+    ``batch``.  Each sample is queued behind ``torch.cuda._sleep``, long
+    enough to keep the card busy while the host enqueues the batch, so the
+    card runs the calls back to back: a short kernel is timed by the card,
+    not by the host's cost of one launch (a wrapper call takes tens of
+    microseconds of host time).  With ``batch=1`` a call that enqueues many
+    operations (a plain version) is timed with its host time."""
     import torch
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_s = (time.perf_counter() - t0) / max(warmup, 1)
+    sleep = (int(min(max(4 * host_s * batch, 2e-4), 0.5) * SLEEP_CYCLES_PER_S)
+             if batch > 1 else 0)
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        if sleep:
+            torch.cuda._sleep(sleep)
         e0.record()
-        fn()
+        for _ in range(batch):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / batch)
     return statistics.median(times)
 
 
@@ -349,15 +368,13 @@ def phase_build():
 
 def phase_ladder(device):
     from repro_torch.kernels import checks
-    flips = rows = 0
+    rows = 0
     calls = checks.ladder(device)
     for name, args in calls:
-        res = checks.hold(name, args)
-        flips += res["near_tie_flips"]
-        rows += res["count_rows"]
+        rows += checks.hold(name, args)["count_rows"]
     log(f"ladder: {len(calls)} kernel calls match their plain versions "
-        f"({flips} near-tie flips, {rows} ball-query counts off by their "
-        f"boundary lanes)")
+        f"(ball query and kNN exactly; {rows} ball-query count rows off by "
+        f"their boundary lanes)")
 
 
 def make_engine(device, params=None):
@@ -378,7 +395,7 @@ def hold_and_time(calls) -> dict:
         res = checks.hold(name, args)
         run_kernel, run_plain = checks.runners(name, args)
         ms = median_ms(run_kernel, reps=20)
-        plain_ms = median_ms(run_plain, reps=5, warmup=1)
+        plain_ms = median_ms(run_plain, reps=5, warmup=1, batch=1)
         libs = {label: median_ms(fn, reps=20)
                 for label, fn in library_calls(name, args).items()}
         lib_ms = min(libs.values()) if libs else None
@@ -388,8 +405,8 @@ def hold_and_time(calls) -> dict:
             f"plain {plain_ms:.4f} ms  bound {bms:.5f} ms ({by}: "
             f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop)  library "
             + (", ".join(f"{k} {v:.4f} ms" for k, v in libs.items()) or "-")
-            + f"  max|err| {res['max_abs_err']:.3g}  flips "
-            f"{res['near_tie_flips']}  count rows {res['count_rows']}")
+            + f"  max|err| {res['max_abs_err']:.3g}  count rows "
+            f"{res['count_rows']}")
         row = rows.setdefault(name, dict(ms=0.0, plain_ms=0.0, bytes=0.0,
                                          ops=0.0, library_ms=0.0, err=0.0,
                                          calls=0))

@@ -31,7 +31,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes; every launcher returns a cudaError_t as int.
 SIGNATURES = {
-    "fc_fps_blocks": [_P, _P, _P, _I, _I, _I, _P],
+    "fc_fps_blocks": [_P, _P, _P, _P, _I, _I, _I, _P],
     "fc_ball_query_blocks": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              ctypes.c_float, _P],
     "fc_knn_blocks": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -52,8 +52,8 @@ def _nvcc() -> str:
                        "(put the CUDA toolkit's bin/ on PATH)")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path):
+    return sorted(csrc.glob("*.cu")), sorted(csrc.glob("*.cuh"))
 
 
 def _digest(cus, headers) -> str:
@@ -64,22 +64,23 @@ def _digest(cus, headers) -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile every ``csrc/*.cu`` in parallel and link the library; returns
-    its path.  Reuses a library already built from identical sources."""
-    cus, headers = _sources()
-    out = BUILD_DIR / f"libfractal_kernels_{_digest(cus, headers)}.so"
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile every ``*.cu`` of ``csrc`` in parallel and link the library
+    into ``build_dir``; returns its path.  Reuses a library already built
+    from identical sources."""
+    cus, headers = _sources(csrc)
+    out = build_dir / f"libfractal_kernels_{_digest(cus, headers)}.so"
     if out.exists():
         build_log.update(path=str(out), seconds=0.0, reused=True)
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.monotonic()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         procs = []
         for cu in cus:
             obj = Path(tmp) / (cu.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(cu),
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", str(cu),
                    "-o", str(obj)]
             procs.append((cu, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -105,18 +106,23 @@ def build() -> Path:
     return out
 
 
+def load(path: Path, names=SIGNATURES) -> ctypes.CDLL:
+    """Load a built library and declare the launchers in ``names``."""
+    lib = ctypes.CDLL(str(path))
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    lib.fc_error_string.argtypes = [ctypes.c_int]
+    lib.fc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on the first call."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.fc_error_string.argtypes = [ctypes.c_int]
-        lib.fc_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = load(build())
     return _lib
 
 

@@ -6,9 +6,16 @@ both sides run the plain version).
 The ladder is that of tests/test_point_impls.py -- block sizes 65/200/33,
 empty blocks, all-invalid masks, FPS exhaustion, out-of-range gathers --
 plus blocks wider than one CTA of threads: FPS at 1500, 3000 and 5000
-lanes (two, three and five points a thread, with scattered masks and
-exhaustion past lane 1024), ball query and kNN over 1500-lane windows
-(shared memory above the 48 KB default).  The gather's backward,
+lanes (two, three and five points a thread) and at 12,000 and 20,000
+lanes (the scratch-row variant), each with an empty block, a scattered
+mask and exhaustion past lane 1024; ball query and kNN over 1500-lane
+windows.  Ball query and kNN also meet the cases that catch a wrong
+selection (``topk_ladder``): scattered (non-prefix) window masks,
+windows of 1 to 15 valid lanes at ``num``=16, ``num``/``k`` of 1, 3, 16
+and 40 (40 takes two passes of the register list), windows of 8,192 and
+20,000 lanes (several shared-memory tiles), and duplicated lattice points
+around lattice centres, where many distances are bit-equal and only the
+lowest-lane rule decides.  The gather's backward,
 ``scatter_add_blocks``, has its own: windows of 33, 128 and 200 rows, 65
 and 768 cotangent rows, 9, 64 and 128 channels, indices below 0, at or
 above W and the -1 padding, a block whose rows all land on one slot, a
@@ -23,8 +30,11 @@ side empty), lanes exactly at the split value, and a run chunked through
 Rules:
 
 * FPS and gather must match exactly;
-* ball query and kNN: d2 within ``D2_TOL`` rank by rank, indices exactly
-  except at near-ties (``check_topk``);
+* ball query and kNN must match exactly: the same indices and bitwise the
+  same d2 (the kernels round every float op as the plain versions do, and
+  ties go to the lowest lane on both sides).  ``check_topk``, which allows
+  near-tie flips, is the rule between the port and the JAX package, whose
+  XLA dot rounds the last ulp differently;
 * ball-query counts: the kernel squares the radius in double, the plain
   version in f32 (as the two JAX paths do), so a row's count may differ by
   at most the number of its valid lanes whose distance lies within
@@ -76,6 +86,72 @@ def blocks(seed, nb, bs, device, empty=0, invalid=False):
             torch.from_numpy(mask).to(device))
 
 
+def scattered(seed, nb, bs, device, p=0.5):
+    """(coords (nb, bs, 3) f32, mask (nb, bs) bool) with each lane valid
+    with probability ``p``, anywhere in the block."""
+    rng = np.random.default_rng(seed)
+    coords = rng.normal(0, 1, (nb, bs, 3)).astype(np.float32)
+    mask = rng.random((nb, bs)) < p
+    return (torch.from_numpy(coords).to(device),
+            torch.from_numpy(mask).to(device))
+
+
+def lattice(seed, nb, copies, device):
+    """Windows of the 4 x 4 x 4 integer lattice, each point ``copies``
+    times in shuffled lane order (a fifth of the lanes invalid), and 16
+    centres a block on lattice points and half-way between them: every
+    product and sum is exact in f32, so equal distances are bit-equal.
+    Returns (centres, cmask, window, wmask)."""
+    rng = np.random.default_rng(seed)
+    g = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3).astype(np.float32)
+    pts = np.stack([rng.permutation(np.repeat(g, copies, 0))
+                    for _ in range(nb)])
+    mask = rng.random(pts.shape[:2]) < 0.8
+    cen = np.stack([g[rng.choice(len(g), 16)] + 0.5 * rng.integers(
+        0, 2, (16, 3)) for _ in range(nb)]).astype(np.float32)
+    t = lambda x: torch.from_numpy(x).to(device)
+    return t(cen), t(np.ones((nb, 16), bool)), t(pts), t(mask)
+
+
+def topk_ladder(device) -> list:
+    """[(name, arguments)] of the ball-query and kNN cases that catch a
+    wrong selection."""
+    calls = []
+
+    def both(cen, cm, win, wm, num, radius=0.8):
+        calls.append(("ball_query_blocks", dict(
+            q=cen, cmask=cm, window=win, wmask=wm, radius=radius, num=num)))
+        calls.append(("knn_blocks", dict(q=cen, window=win, wmask=wm,
+                                          num=num)))
+
+    for seed, p in ((40, 0.5), (41, 0.1)):               # scattered masks
+        win, wm = scattered(seed, 4, 200, device, p)
+        wm[0] = False
+        cen, cm = blocks(seed + 10, 4, 13, device)
+        both(cen, cm, win, wm, 16)
+    win, _ = scattered(42, 15, 64, device)               # 1-15 valid lanes
+    rng = np.random.default_rng(43)
+    wm = torch.zeros((15, 64), dtype=torch.bool)
+    for b in range(15):
+        wm[b, torch.from_numpy(rng.choice(64, b + 1, replace=False))] = True
+    cen, cm = blocks(44, 15, 9, device)
+    both(cen, cm, win, wm.to(device), 16)
+    win, wm = scattered(45, 3, 200, device)              # num/k 1..40
+    cen, cm = blocks(46, 3, 40, device)
+    for num in (1, 3, 16, 40):
+        both(cen, cm, win, wm, num)
+    for seed, bs in ((47, 8192), (48, 20_000)):          # several tiles
+        win, wm = scattered(seed, 2, bs, device, 0.7)
+        wm[1, : bs // 2] = False
+        cen, cm = blocks(seed + 10, 2, 24, device)
+        both(cen, cm, win, wm, 16, radius=0.3)
+    both(cen, cm, win, wm, 40, radius=0.3)
+    for copies in (2, 5):                                # bit-equal ties
+        both(*lattice(50 + copies, 3, copies, device), 16, radius=1.0)
+    return calls
+
+
 def ladder(device) -> list:
     """[(kernel name, arguments)] of every ladder call."""
     calls = []
@@ -97,7 +173,7 @@ def ladder(device) -> list:
     c, m = blocks(11, 3, 40, device, empty=1)
     m[1] = torch.arange(40, device=device) < 3           # FPS exhaustion
     calls.append(("fps_blocks", dict(coords=c, mask=m, k=7)))
-    for bs in (1500, 3000, 5000):
+    for bs in (1500, 3000, 5000, 12_000, 20_000):
         c, m = blocks(bs, 4, bs, device, empty=1)
         rng = np.random.default_rng(bs + 1)
         m[1] = False                                      # exhaustion, with
@@ -109,7 +185,8 @@ def ladder(device) -> list:
     calls.append(("ball_query_blocks", dict(q=cen, cmask=cm, window=c,
                                             wmask=m, radius=0.5, num=16)))
     calls.append(("knn_blocks", dict(q=cen, window=c, wmask=m, num=3)))
-    return calls + scatter_ladder(device) + level_ladder(device)
+    return (calls + topk_ladder(device) + scatter_ladder(device)
+            + level_ladder(device))
 
 
 def scatter_ladder(device) -> list:
@@ -278,36 +355,46 @@ def check_counts(cnt_a, cnt_b, centers, window, wmask, *, radius: float,
     return int((diff > 0).sum())
 
 
+def hold_picks(name: str, got, want) -> None:
+    """Ball query or kNN output (idx, d2, ...) against another: the same
+    indices and bitwise the same d2, or raise."""
+    if got[0].shape != want[0].shape or got[1].shape != want[1].shape:
+        raise AssertionError(f"{name}: shape {tuple(got[0].shape)}, plain "
+                             f"version {tuple(want[0].shape)}")
+    bad = (got[0] != want[0]) | (got[1].view(torch.int32)
+                                 != want[1].view(torch.int32))
+    if bool(bad.any()):
+        raise AssertionError(f"{name} differs from its plain version at "
+                             f"{int(bad.sum())} of {bad.numel()} picks")
+
+
 def hold(name: str, args: dict, tol: float = D2_TOL) -> dict:
     """Run the kernel and its plain version on one call's arguments and
-    compare them.  Returns {max_abs_err, near_tie_flips, count_rows}."""
+    compare them.  Returns {max_abs_err, count_rows}."""
     run_kernel, run_plain = runners(name, args)
     got, want = run_kernel(), run_plain()
     if name == "scatter_add_blocks":
         torch.testing.assert_close(got, want, atol=SUM_TOL, rtol=SUM_TOL)
         err = float((got - want).abs().max()) if got.numel() else 0.0
-        return {"max_abs_err": err, "near_tie_flips": 0, "count_rows": 0}
+        return {"max_abs_err": err, "count_rows": 0}
     if name == "fractal_level_blocks":
         for part, a, b in zip(("side", "left_count", "child_stats"), got,
                               want):
             if a.shape != b.shape or not bool((a == b).all()):
                 raise AssertionError(f"fractal_level_blocks: {part} differs "
                                      f"from its plain version")
-        return {"max_abs_err": 0.0, "near_tie_flips": 0, "count_rows": 0}
+        return {"max_abs_err": 0.0, "count_rows": 0}
     if name in ("fps_blocks", "gather_blocks"):
         if not torch.equal(got, want):
             raise AssertionError(f"{name} differs from its plain version at "
                                  f"{int((got != want).sum())} entries")
-        return {"max_abs_err": 0.0, "near_tie_flips": 0, "count_rows": 0}
-    q, w, wm = args["q"], args["window"], args["wmask"]
-    flips = check_topk(got[0], got[1], want[0], want[1], q, w, wm, tol=tol)
-    fin = (got[1] < INF) & (want[1] < INF)
-    err = float((got[1] - want[1]).abs()[fin].max()) if fin.any() else 0.0
+        return {"max_abs_err": 0.0, "count_rows": 0}
+    hold_picks(name, got, want)
     rows = 0
     if name == "ball_query_blocks":
-        rows = check_counts(got[2], want[2], q, w, wm,
-                            radius=args["radius"], tol=tol)
-    return {"max_abs_err": err, "near_tie_flips": flips, "count_rows": rows}
+        rows = check_counts(got[2], want[2], args["q"], args["window"],
+                            args["wmask"], radius=args["radius"], tol=tol)
+    return {"max_abs_err": 0.0, "count_rows": rows}
 
 
 def hold_grads(card: dict, cpu: dict, tol: float = GRAD_REL_TOL) -> dict:

@@ -13,17 +13,58 @@
 // step), not bound by bytes (a block reads 13 bytes a point once) or by
 // operations (9 flops a point a step).
 //
-// Design: one thread per point (a few per thread for blocks wider than
+// Design: one thread per point (up to 8 per thread for blocks wider than
 // 1024), coordinates and min-d^2 in registers for the whole loop; the pick's
 // coordinates come from the L1-resident input; a (value, index) shuffle
 // reduction per warp then one warp across warps.  An empty block writes its
 // zeros and leaves at once, since most slots of a static leaf layout are
-// empty.
+// empty.  A block wider than 8192 lanes keeps min-d^2 in a scratch row that
+// the wrapper allocates (fps_wide_kernel), with the same arithmetic, and
+// rereads its coordinates each step from the L2-resident input.
 #include "common.cuh"
 
 namespace {
 
 using namespace fc;
+
+// Every thread's first valid lane -> the block's (bs if none).
+__device__ inline int block_first(int first, int* red_i, int* s_pick) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    first = min(first, __shfl_xor_sync(0xffffffffu, first, off));
+  if (lane == 0) red_i[warp] = first;
+  __syncthreads();
+  if (warp == 0) {
+    int f = lane < nwarps ? red_i[lane] : 0x7fffffff;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      f = min(f, __shfl_xor_sync(0xffffffffu, f, off));
+    if (lane == 0) *s_pick = f;
+  }
+  __syncthreads();
+  return *s_pick;
+}
+
+// Every thread's (max min-d^2, lane) -> the block's pick, or `prev` once
+// every lane is NEG.
+__device__ inline int block_pick(float bv, int bi, int prev, float* red_v,
+                                 int* red_i, int* s_pick) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  warp_argmax(bv, bi);
+  if (lane == 0) { red_v[warp] = bv; red_i[warp] = bi; }
+  __syncthreads();
+  if (warp == 0) {
+    float v = lane < nwarps ? red_v[lane] : FC_NEG;
+    int i = lane < nwarps ? red_i[lane] : 0x7fffffff;
+    warp_argmax(v, i);
+    if (lane == 0) *s_pick = (v > FC_NEG) ? i : prev;
+  }
+  __syncthreads();
+  return *s_pick;
+}
 
 // Bounded at 1024 threads so that every variant fits the register file
 // (64K registers an SM): the wider ones would otherwise take up to 80 a
@@ -41,8 +82,6 @@ __global__ void __launch_bounds__(1024)
   const float* c = coords + (size_t)b * bs * 3;
   const uint8_t* m = mask + (size_t)b * bs;
   int32_t* out = idx + (size_t)b * k;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
 
   float px[PPT], py[PPT], pz[PPT], mind[PPT];
   bool ok[PPT];
@@ -60,21 +99,7 @@ __global__ void __launch_bounds__(1024)
       if (ok[t] && i < first) first = i;
     }
   }
-  // First valid lane: block-wide min.
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    first = min(first, __shfl_xor_sync(0xffffffffu, first, off));
-  if (lane == 0) red_i[warp] = first;
-  __syncthreads();
-  if (warp == 0) {
-    int f = lane < nwarps ? red_i[lane] : bs;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      f = min(f, __shfl_xor_sync(0xffffffffu, f, off));
-    if (lane == 0) s_pick = f;
-  }
-  __syncthreads();
-  first = s_pick;
+  first = block_first(first, red_i, &s_pick);
   if (first >= bs) {  // empty block: start 0, every step repeats it
     for (int j = threadIdx.x; j < k; j += blockDim.x) out[j] = 0;
     return;
@@ -98,17 +123,59 @@ __global__ void __launch_bounds__(1024)
       mind[t] = mv;
       if (mv > bv) { bv = mv; bi = i; }
     }
-    warp_argmax(bv, bi);
-    if (lane == 0) { red_v[warp] = bv; red_i[warp] = bi; }
-    __syncthreads();
-    if (warp == 0) {
-      float v = lane < nwarps ? red_v[lane] : FC_NEG;
-      int i = lane < nwarps ? red_i[lane] : 0x7fffffff;
-      warp_argmax(v, i);
-      if (lane == 0) s_pick = (v > FC_NEG) ? i : prev;
+    prev = block_pick(bv, bi, prev, red_v, red_i, &s_pick);
+    if (threadIdx.x == 0) out[j] = prev;
+  }
+}
+
+// Blocks wider than 8 lanes a thread: min-d^2 in the scratch row `mind`
+// (NB, BS), coordinates reread each step.  After the first step an invalid
+// or picked lane holds NEG, and fminf(NEG, d) is NEG, so the mask is read
+// once, as the register variant's `ok` does.
+__global__ void __launch_bounds__(1024)
+    fps_wide_kernel(const float* __restrict__ coords,
+                    const uint8_t* __restrict__ mask,
+                    int32_t* __restrict__ idx, float* __restrict__ mind,
+                    int bs, int k) {
+  __shared__ float red_v[32];
+  __shared__ int red_i[32];
+  __shared__ int s_pick;
+
+  const int b = blockIdx.x;
+  const float* c = coords + (size_t)b * bs * 3;
+  const uint8_t* m = mask + (size_t)b * bs;
+  float* md = mind + (size_t)b * bs;
+  int32_t* out = idx + (size_t)b * k;
+
+  int first = bs;
+  for (int i = threadIdx.x; i < bs; i += blockDim.x) {
+    if (m[i]) {
+      first = i;
+      break;
     }
-    __syncthreads();
-    prev = s_pick;
+  }
+  first = block_first(first, red_i, &s_pick);
+  if (first >= bs) {
+    for (int j = threadIdx.x; j < k; j += blockDim.x) out[j] = 0;
+    return;
+  }
+
+  int prev = first;
+  if (threadIdx.x == 0) out[0] = first;
+  for (int j = 1; j < k; ++j) {
+    const float qx = c[3 * prev], qy = c[3 * prev + 1], qz = c[3 * prev + 2];
+    float bv = FC_NEG;
+    int bi = 0x7fffffff;
+    for (int i = threadIdx.x; i < bs; i += blockDim.x) {
+      float dx = __fsub_rn(c[3 * i], qx), dy = __fsub_rn(c[3 * i + 1], qy),
+            dz = __fsub_rn(c[3 * i + 2], qz);
+      float d = sqnorm3(dx, dy, dz);
+      float mv = (j == 1) ? (m[i] ? d : FC_NEG) : fminf(md[i], d);
+      if (i == prev) mv = FC_NEG;
+      md[i] = mv;
+      if (mv > bv) { bv = mv; bi = i; }
+    }
+    prev = block_pick(bv, bi, prev, red_v, red_i, &s_pick);
     if (threadIdx.x == 0) out[j] = prev;
   }
 }
@@ -122,14 +189,20 @@ cudaError_t launch(const float* coords, const uint8_t* mask, int32_t* idx,
 
 }  // namespace
 
+// `scratch`: (NB, BS) floats, needed only when BS > 8192.
 extern "C" int fc_fps_blocks(const float* coords, const uint8_t* mask,
-                             int32_t* idx, int nb, int bs, int k,
-                             void* stream) {
+                             int32_t* idx, float* scratch, int nb, int bs,
+                             int k, void* stream) {
   if (nb == 0 || k == 0) return 0;
-  if (bs < 1 || k < 0 || bs > 8 * 1024) return (int)cudaErrorInvalidValue;
+  if (bs < 1 || k < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (bs > 8 * 1024) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    fps_wide_kernel<<<nb, 1024, 0, s>>>(coords, mask, idx, scratch, bs, k);
+    return (int)cudaGetLastError();
+  }
   int threads = bs < 1024 ? ((bs + 31) / 32) * 32 : 1024;
   int ppt = (bs + threads - 1) / threads;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (ppt <= 1) err = launch<1>(coords, mask, idx, nb, bs, k, threads, s);
   else if (ppt <= 2) err = launch<2>(coords, mask, idx, nb, bs, k, threads, s);

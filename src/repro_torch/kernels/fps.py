@@ -4,6 +4,8 @@ Counterpart of ``repro.kernels.fps.fps_blocks`` (the Pallas kernel) and of
 its oracle ``repro.kernels.ref.fps_blocks``.  Layout is the caller's:
 coords ``(NB, BS, 3)`` and a bool mask ``(NB, BS)``; the TPU's lane-major
 ``(NB, 3, BS)`` layout and its 128-lane padding are not carried over.
+Blocks wider than ``REGISTER_LANES`` keep min-d^2 in a scratch row that
+the wrapper allocates.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (NEG, argmax_first, on_card, require,
                                         sqnorm)
+
+REGISTER_LANES = 8192   # widest block whose min-d^2 stays in registers
 
 
 def fps_plain(coords: torch.Tensor, mask: torch.Tensor, k: int):
@@ -54,9 +58,12 @@ def fps_blocks(coords: torch.Tensor, mask: torch.Tensor, *, k: int):
     idx = torch.empty((nb, k), dtype=torch.int32, device=coords.device)
     if nb == 0 or k == 0:
         return idx
+    scratch = (torch.empty((nb, bs), dtype=torch.float32, device=coords.device)
+               if bs > REGISTER_LANES else None)
     stream = torch.cuda.current_stream().cuda_stream
-    err = _build.library().fc_fps_blocks(coords.data_ptr(), mask.data_ptr(),
-                                         idx.data_ptr(), nb, bs, k, stream)
+    err = _build.library().fc_fps_blocks(
+        coords.data_ptr(), mask.data_ptr(), idx.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), nb, bs, k, stream)
     _build.check(err, "fps_blocks")
     fps_blocks.launches += 1
     return idx

@@ -104,6 +104,60 @@ def test_gather_plain_matches_xla(nb, w):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def topk_case(case):
+    """(centres, cmask, window, wmask) as numpy, from the card's ladder: a
+    scattered window mask, or duplicated lattice points (bit-equal
+    distances, so only the lowest-lane rule decides)."""
+    kind, arg = case.split("-")
+    if kind == "scattered":
+        seed = 40 if arg == "0.5" else 41
+        win, wmask = checks.scattered(seed, 4, 200, "cpu", float(arg))
+        wmask[0] = False
+        centers, cmask = checks.blocks(seed + 10, 4, 13, "cpu")
+        arrays = centers, cmask, win, wmask
+    else:
+        arrays = checks.lattice(50 + int(arg), 3, int(arg), "cpu")
+    return [a.numpy() for a in arrays]
+
+
+@pytest.mark.parametrize("case", ["scattered-0.5", "scattered-0.1",
+                                  "lattice-2", "lattice-5"])
+def test_topk_plain_matches_xla_exactly_on_scattered_and_tied(case):
+    """Ball query and kNN (num=16) on scattered masks and duplicated lattice
+    points: the same indices as the JAX package, exactly."""
+    centers, cmask, win, wmask = topk_case(case)
+    ref = jops.ball_query_blocks(jnp.asarray(centers), jnp.asarray(cmask),
+                                 jnp.asarray(win), jnp.asarray(wmask),
+                                 radius=1.0, num=16, impl="xla")
+    idx, d2, cnt = ops.ball_query_blocks(t(centers), t(cmask), t(win),
+                                         t(wmask), radius=1.0, num=16)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref[0]))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(ref[1]), rtol=0,
+                               atol=TOL)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(ref[2]))
+    ref = jops.knn_blocks(jnp.asarray(centers), jnp.asarray(win),
+                          jnp.asarray(wmask), k=16, impl="xla")
+    idx, d2 = ops.knn_blocks(t(centers), t(win), t(wmask), k=16)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref[0]))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(ref[1]), rtol=0,
+                               atol=TOL)
+    if case.startswith("lattice"):          # the case has ties to decide
+        fin = d2 < INF
+        assert bool(((d2[..., 1:] == d2[..., :-1]) & fin[..., 1:]).any())
+
+
+def test_fps_plain_matches_xla_on_a_12000_lane_block():
+    """A block wider than the kernel's register variants (12,000 lanes,
+    scattered mask, one empty block) against the JAX package, exactly."""
+    coords, mask = checks.scattered(12_000, 2, 12_000, "cpu", 0.6)
+    mask[0] = False
+    want = np.asarray(jops.fps_blocks(jnp.asarray(coords.numpy()),
+                                      jnp.asarray(mask.numpy()), k=9,
+                                      impl="xla"))
+    got = ops.fps_blocks(coords, mask, k=9)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_pallas_interpret_one_case_per_kernel():
     """One small case per kernel through the Pallas kernels (interpret)."""
     coords, mask = blocks(11, 3, 40, empty_blocks=1)
@@ -261,7 +315,7 @@ def _imports(path):
 
 def test_port_imports_no_jax_and_no_reference_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "kernel_bench.py"]
     assert len(files) > 10
     bad = []
     for f in files:
