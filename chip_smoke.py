@@ -14,13 +14,17 @@ of which raises on failure:
 3. hold each hand-written kernel against its plain PyTorch version on the
    same CUDA tensors, by the rules of ``repro_torch.kernels.checks``: on
    its odd ladder (block sizes 65/200/33, empty blocks, all-invalid masks,
-   FPS exhaustion, out-of-range gathers, FPS blocks of 1500-20,000 lanes,
-   1500-lane windows; ball query and kNN on scattered masks, 1-15 valid
-   lanes at num=16, num/k of 1/3/16/40, windows of 8,192 and 20,000
-   lanes and duplicated lattice points, exactly; scatter-adds over 33/128/200-row windows with
-   out-of-range, duplicate and chunked rows; partition levels under all
-   three (da, db) pairs, split values beyond the extents, lanes at the
-   split value, chunked runs) and on the inputs the serving path gives the
+   FPS exhaustion, out-of-range gathers; FPS at every variant's edges,
+   1-512 lanes for one warp a block, 513-8192 for one CTA, 8193-20,000
+   with a scratch row, with one or two valid lanes, valid lanes only in
+   each thread's last slot, k=1 and duplicated lattice points; 1500-lane
+   windows; ball query and kNN on scattered masks, 1-15 valid lanes at
+   num=16, num/k of 1/3/16/40, windows of 8,192 and 20,000 lanes and
+   duplicated lattice points, exactly; scatter-adds over 33/128/200-row
+   windows with out-of-range, duplicate and chunked rows; partition levels
+   under all three (da, db) pairs, split values beyond the extents, lanes
+   at the split value, blocks of 32-2048 lanes valid only in each thread's
+   last slot, chunked runs) and on the inputs the serving path gives the
    four forward kernels in one microbatch of the largest bucket, with the
    kernel's, the plain version's and the PyTorch library call's median
    times; ``fractal_level_blocks``, on no path, is held and timed on that
@@ -537,29 +541,37 @@ def phase_289k(engine):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def phase_level_kernel() -> dict:
-    """``fractal_level_blocks`` (on no path) on the main path's own blocks:
-    the stage-0 leaf blocks of one microbatch of the largest bucket (the
-    clouds of ``phase_main_path_kernels``), each split at its valid
-    midpoint on ``da``.  Held for every (da, db) pair, timed for one."""
+def level_calls() -> list:
+    """[("fractal_level_blocks", arguments)] on the main path's own blocks,
+    one call for every (da, db) pair: the stage-0 leaf blocks of one
+    microbatch of the largest bucket (the clouds of
+    ``phase_main_path_kernels``), each split at its valid midpoint on
+    ``da``."""
     import torch
     from repro_torch.core import fractal
     from repro_torch.kernels import checks
-    b = BUCKETS[-1]
     clouds = torch.from_numpy(np.stack(
-        [clustered_cloud(b, 100 + i) for i in range(MICROBATCH)])).cuda()
+        [clustered_cloud(BUCKETS[-1], 100 + i)
+         for i in range(MICROBATCH)])).cuda()
     part = fractal.partition(clouds, th=TH, on_overflow="silent")
     view, mask, _ = fractal.leaf_view(part, part.coords, TH)
-    calls = []
-    for da, db in checks.LEVEL_DIMS:
-        args = checks.level_at_midpoints(view, mask, da, db)
-        checks.hold("fractal_level_blocks", args)
-        if (da, db) == LEVEL_DIMS_TIMED:
-            calls.append(("fractal_level_blocks", args))
-    log(f"fractal_level_blocks on {MICROBATCH}x{b} leaf blocks "
-        f"({int(mask.sum())} valid lanes): all three (da, db) pairs equal "
-        f"their plain versions")
-    return hold_and_time(calls)
+    return [("fractal_level_blocks", checks.level_at_midpoints(view, mask, da,
+                                                              db))
+            for da, db in checks.LEVEL_DIMS]
+
+
+def phase_level_kernel() -> dict:
+    """``fractal_level_blocks`` (on no path) on the main path's own blocks
+    (``level_calls``): held for every (da, db) pair, timed for one."""
+    from repro_torch.kernels import checks
+    calls = level_calls()
+    for name, args in calls:
+        checks.hold(name, args)
+    log(f"fractal_level_blocks on {MICROBATCH}x{BUCKETS[-1]} leaf blocks "
+        f"({int(calls[0][1]['mask'].sum())} valid lanes): all three (da, db) "
+        f"pairs equal their plain versions")
+    return hold_and_time([(n, a) for n, a in calls
+                          if (a["da"], a["db"]) == LEVEL_DIMS_TIMED])
 
 
 def phase_profile(engine):
@@ -588,8 +600,8 @@ def report_profile(prof, wall_us: float, title: str, top: int = 8):
     card's idle share of ``wall_us``, from one ``torch.profiler`` run."""
     # The kernels of csrc/ live in an anonymous namespace.
     ported = tuple(f"(anonymous namespace)::{k}_kernel"
-                   for k in ("fps", "ball_query", "knn", "gather",
-                             "scatter_add", "fractal_level"))
+                   for k in ("fps_warp", "fps", "fps_wide", "ball_query",
+                             "knn", "gather", "scatter_add", "fractal_level"))
     dev = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)

@@ -5,7 +5,8 @@ together) for ``sm_90a``, then linked into ``libfractal_kernels.so`` with a
 plain C interface that ``ctypes`` loads -- no PyTorch headers, so a build
 takes seconds.  The library lands in ``build/torch_ext/`` at the root of
 the checkout, named by a hash of the sources and flags, so an edited source
-is rebuilt and an unchanged one is reused.
+is rebuilt and an unchanged one is reused; what ``ptxas`` reported for each
+source (registers, spills) is kept beside it and read again on reuse.
 
 Nothing here runs at import: ``library()`` builds and loads on its first
 call, which only a wrapper handed a CUDA tensor makes.
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -31,7 +33,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes; every launcher returns a cudaError_t as int.
 SIGNATURES = {
-    "fc_fps_blocks": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "fc_fps_warp_blocks": [_P, _P, _P, _I, _I, _I, _P],
+    "fc_fps_cta_blocks": [_P, _P, _P, _I, _I, _I, _P],
+    "fc_fps_wide_blocks": [_P, _P, _P, _P, _I, _I, _I, _P],
     "fc_ball_query_blocks": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              ctypes.c_float, _P],
     "fc_knn_blocks": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -70,8 +74,11 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     from identical sources."""
     cus, headers = _sources(csrc)
     out = build_dir / f"libfractal_kernels_{_digest(cus, headers)}.so"
+    logs_path = out.with_suffix(".ptxas.json")
     if out.exists():
-        build_log.update(path=str(out), seconds=0.0, reused=True)
+        build_log.update(path=str(out), seconds=0.0, reused=True,
+                         ptxas=(json.loads(logs_path.read_text())
+                                if logs_path.exists() else {}))
         return out
     build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -100,6 +107,7 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError("linking the kernels failed:\n" + link.stdout)
+        logs_path.write_text(json.dumps(logs))
         os.replace(tmp_so, out)
     build_log.update(path=str(out), seconds=time.monotonic() - t0,
                      reused=False, ptxas=logs)

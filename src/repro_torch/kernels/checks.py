@@ -5,9 +5,13 @@ both sides run the plain version).
 
 The ladder is that of tests/test_point_impls.py -- block sizes 65/200/33,
 empty blocks, all-invalid masks, FPS exhaustion, out-of-range gathers --
-plus blocks wider than one CTA of threads: FPS at 1500, 3000 and 5000
-lanes (two, three and five points a thread) and at 12,000 and 20,000
-lanes (the scratch-row variant), each with an empty block, a scattered
+plus FPS at the edges of its variants' widths (``fps.variant``): the
+one-warp variant at 1, 32, 33, 256 and 512 lanes and the CTA variant at
+513 (``fps_ladder``: only the last lane valid, two valid lanes, valid
+lanes only in every thread's last slot, k = 1, duplicated lattice
+points), blocks wider than one CTA of threads, at 1500, 3000, 5000 and
+8192 lanes (two to eight points a thread), and the scratch-row variant
+at 8193, 12,000 and 20,000 lanes, each with an empty block, a scattered
 mask and exhaustion past lane 1024; ball query and kNN over 1500-lane
 windows.  Ball query and kNN also meet the cases that catch a wrong
 selection (``topk_ladder``): scattered (non-prefix) window masks,
@@ -24,8 +28,9 @@ through ``ops.gather_blocks``' autograd node against an unchunked one.
 The partition level, ``fractal_level_blocks``, has its own too
 (``level_ladder``): the same block sizes and masks under all three
 ``(da, db)`` pairs, a split value beyond the extents on either side (one
-side empty), lanes exactly at the split value, and a run chunked through
-``ops.fractal_level_blocks`` against an unchunked one.
+side empty), lanes exactly at the split value, blocks of 32, 256, 513 and
+2048 lanes with valid lanes only in every thread's last slot, and a run
+chunked through ``ops.fractal_level_blocks`` against an unchunked one.
 
 Rules:
 
@@ -173,7 +178,7 @@ def ladder(device) -> list:
     c, m = blocks(11, 3, 40, device, empty=1)
     m[1] = torch.arange(40, device=device) < 3           # FPS exhaustion
     calls.append(("fps_blocks", dict(coords=c, mask=m, k=7)))
-    for bs in (1500, 3000, 5000, 12_000, 20_000):
+    for bs in (1500, 3000, 5000, 8192, 8193, 12_000, 20_000):
         c, m = blocks(bs, 4, bs, device, empty=1)
         rng = np.random.default_rng(bs + 1)
         m[1] = False                                      # exhaustion, with
@@ -185,8 +190,37 @@ def ladder(device) -> list:
     calls.append(("ball_query_blocks", dict(q=cen, cmask=cm, window=c,
                                             wmask=m, radius=0.5, num=16)))
     calls.append(("knn_blocks", dict(q=cen, window=c, wmask=m, num=3)))
-    return (calls + topk_ladder(device) + scatter_ladder(device)
-            + level_ladder(device))
+    return (calls + fps_ladder(device) + topk_ladder(device)
+            + scatter_ladder(device) + level_ladder(device))
+
+
+def last_slots(bs, device):
+    """(bs,) mask whose valid lanes are the block's last 32: the last lane
+    that each of a warp's 32 threads takes."""
+    return torch.arange(bs, device=device) >= bs - 32
+
+
+def fps_ladder(device) -> list:
+    """[("fps_blocks", arguments)] at the edges of the one-warp variant's
+    width (1, 32 and 33 lanes: one and two slots a lane; 256, the main
+    path's; 512 and 513, the last width one warp takes and the first the
+    CTA variant takes): an empty block, only the last lane valid, two valid
+    lanes (exhaustion at step 2), valid lanes only in every thread's last
+    slot and a prefix, at k = 7 and k = 1; then duplicated lattice points,
+    where distances are bit-equal across lanes and slots, at k = 65."""
+    calls = []
+    for bs in (1, 32, 33, 256, 512, 513):
+        c, m = blocks(60 + bs, 5, bs, device, empty=1)
+        m[1:4] = False
+        m[1, bs - 1] = True                              # only the last lane
+        m[2, torch.tensor([bs // 3, bs - 1])] = True     # two valid lanes
+        m[3] = last_slots(bs, device)
+        for k in (7, 1):
+            calls.append(("fps_blocks", dict(coords=c, mask=m, k=k)))
+        _, _, pts, pm = lattice(70 + bs, 3, bs // 64 + 2, device)
+        calls.append(("fps_blocks", dict(coords=pts[:, :bs].contiguous(),
+                                         mask=pm[:, :bs].contiguous(), k=65)))
+    return calls
 
 
 def scatter_ladder(device) -> list:
@@ -239,6 +273,14 @@ def level_ladder(device) -> list:
         tied[:, ::3, da] = mid[:, None]
         calls.append(("fractal_level_blocks", dict(
             coords=tied, mask=m, mid=mid, da=da, db=db)))
+    for bs in (32, 256, 513, 2048):             # the one-warp kernel's edges
+        c, m = blocks(12 + bs, 4, bs, device, empty=1)
+        m[2] = last_slots(bs, device)
+        mid = torch.from_numpy(np.random.default_rng(bs).normal(
+            0, 0.5, 4).astype(np.float32)).to(device)
+        for da, db in LEVEL_DIMS:
+            calls.append(("fractal_level_blocks", dict(
+                coords=c, mask=m, mid=mid, da=da, db=db)))
     c, m = blocks(9, 7, 200, device, empty=1)
     mid = torch.from_numpy(np.random.default_rng(10).normal(
         0, 0.5, 7).astype(np.float32)).to(device)
@@ -372,7 +414,12 @@ def hold(name: str, args: dict, tol: float = D2_TOL) -> dict:
     """Run the kernel and its plain version on one call's arguments and
     compare them.  Returns {max_abs_err, count_rows}."""
     run_kernel, run_plain = runners(name, args)
-    got, want = run_kernel(), run_plain()
+    return hold_result(name, args, run_kernel(), run_plain(), tol)
+
+
+def hold_result(name: str, args: dict, got, want, tol: float = D2_TOL) -> dict:
+    """One call's kernel output ``got`` against its plain version's
+    ``want``, by the rules above.  Returns {max_abs_err, count_rows}."""
     if name == "scatter_add_blocks":
         torch.testing.assert_close(got, want, atol=SUM_TOL, rtol=SUM_TOL)
         err = float((got - want).abs().max()) if got.numel() else 0.0

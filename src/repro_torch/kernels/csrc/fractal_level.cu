@@ -1,4 +1,4 @@
-// One fractal partition level per block, one block per CTA.
+// One fractal partition level per block, one block per warp.
 //
 // Replaces the Pallas TPU kernel `fractal_level_blocks` / `_level_kernel`
 // of src/repro/kernels/fractal_engine.py (oracle: `fractal_level_blocks` in
@@ -13,79 +13,89 @@
 // What bounds it: bytes.  A lane costs a compare and four min/max against
 // 8 bytes of coordinates, 1 of mask and 4 of side bits.
 //
-// Design: the TPU kernel holds a whole node in VMEM as (3, BS) lanes; here
-// a CTA takes one block, its threads stride over the BS lanes (one lane a
-// thread at the main path's BS=256), write the side bits, and keep a count
-// and four extrema in registers, reduced by warp shuffles and then across
-// the CTA's warps through shared memory.  No atomics, nothing carried
-// between CTAs.
+// Design: the TPU kernel holds a whole node in VMEM as (3, BS) lanes.
+// Here one warp takes a block, eight blocks a CTA, so ~1.2 waves of warps
+// cover the main path's 10,204 blocks where one CTA a block took ~10 waves
+// of short CTAs, each ending in a __syncthreads and a serial fold.  The
+// lanes stride over the block 256 lanes at a time: first every mask byte
+// of the stretch, then the two coordinates of its valid lanes only (all
+// loads of a stretch in flight together), then the side bits, written as
+// coalesced rows.  Count and the four extrema fold by warp reductions
+// only; every lane feeds its value or the INF / NEG sentinel to fminf /
+// fmaxf, as the plain version's masked amin / amax do, so the two agree on
+// every input.  No shared memory, no barrier, no atomics.
 #include "common.cuh"
 
 namespace {
 
 using namespace fc;
 
-constexpr int kMaxWarps = 8;
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
 
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+constexpr int kLevelWarps = 8;   // blocks a CTA works on at once
+constexpr int kStretch = 8;      // lanes a thread loads before it computes
+
+__global__ void __launch_bounds__(kLevelWarps * 32)
 fractal_level_kernel(const float* __restrict__ coords,
                      const uint8_t* __restrict__ mask,
                      const float* __restrict__ mid, int32_t* __restrict__ side,
                      int32_t* __restrict__ lcnt, float* __restrict__ stats,
-                     int bs, int da, int db) {
-  __shared__ int s_cnt[kMaxWarps];
-  __shared__ float s_ext[kMaxWarps][4];
-  const int b = blockIdx.x;
+                     int nb, int bs, int da, int db) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const float inf = __int_as_float(0x7f800000);
+  const int b = blockIdx.x * kLevelWarps + (threadIdx.x >> 5);
+  if (b >= nb) return;
   const float* c = coords + (size_t)b * bs * 3;
   const uint8_t* m = mask + (size_t)b * bs;
   int32_t* s = side + (size_t)b * bs;
   const float split = mid[b];
-  const float inf = __int_as_float(0x7f800000);
-
-  // Every lane contributes its value or the sentinel, as the plain
-  // version's masked min/max does, so the two agree on every input.
   int cnt = 0;
   float lmin = inf, lmax = -inf, rmin = inf, rmax = -inf;
-  for (int j = threadIdx.x; j < bs; j += blockDim.x) {
-    const float xa = c[3 * j + da];
-    const float xb = c[3 * j + db];
-    const bool ok = m[j] != 0;
-    const bool right = ok && xa > split;
-    const bool left = ok && !right;
-    s[j] = right ? 1 : 0;
-    cnt += left ? 1 : 0;
-    lmin = fminf(lmin, left ? xb : FC_INF);
-    lmax = fmaxf(lmax, left ? xb : FC_NEG);
-    rmin = fminf(rmin, right ? xb : FC_INF);
-    rmax = fmaxf(rmax, right ? xb : FC_NEG);
-  }
+  for (int base = 0; base < bs; base += 32 * kStretch) {
+    bool ok[kStretch];
+    float xa[kStretch], xb[kStretch];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
-    lmin = fminf(lmin, __shfl_xor_sync(0xffffffffu, lmin, off));
-    lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, off));
-    rmin = fminf(rmin, __shfl_xor_sync(0xffffffffu, rmin, off));
-    rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-  }
-  if (lane == 0) {
-    s_cnt[warp] = cnt;
-    s_ext[warp][0] = lmin;
-    s_ext[warp][1] = lmax;
-    s_ext[warp][2] = rmin;
-    s_ext[warp][3] = rmax;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < nwarps; ++w) {
-      cnt += s_cnt[w];
-      lmin = fminf(lmin, s_ext[w][0]);
-      lmax = fmaxf(lmax, s_ext[w][1]);
-      rmin = fminf(rmin, s_ext[w][2]);
-      rmax = fmaxf(rmax, s_ext[w][3]);
+    for (int u = 0; u < kStretch; ++u) {
+      const int j = base + lane + 32 * u;
+      ok[u] = j < bs && m[j] != 0;
     }
+#pragma unroll
+    for (int u = 0; u < kStretch; ++u) {
+      const int j = base + lane + 32 * u;
+      xa[u] = ok[u] ? c[3 * j + da] : 0.0f;
+      xb[u] = ok[u] ? c[3 * j + db] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kStretch; ++u) {
+      const int j = base + lane + 32 * u;
+      const bool right = ok[u] && xa[u] > split;
+      const bool left = ok[u] && !right;
+      if (j < bs) s[j] = right ? 1 : 0;
+      cnt += left ? 1 : 0;
+      lmin = fminf(lmin, left ? xb[u] : FC_INF);
+      lmax = fmaxf(lmax, left ? xb[u] : FC_NEG);
+      rmin = fminf(rmin, right ? xb[u] : FC_INF);
+      rmax = fmaxf(rmax, right ? xb[u] : FC_NEG);
+    }
+  }
+  cnt = __reduce_add_sync(0xffffffffu, cnt);
+  lmin = warp_min(lmin);
+  lmax = warp_max(lmax);
+  rmin = warp_min(rmin);
+  rmax = warp_max(rmax);
+  if (lane == 0) {
     lcnt[b] = cnt;
     float* st = stats + (size_t)b * 4;
     st[0] = lmin;
@@ -105,11 +115,9 @@ extern "C" int fc_fractal_level_blocks(const float* coords,
   if (nb == 0) return 0;
   if (bs < 1 || da < 0 || da > 2 || db < 0 || db > 2)
     return (int)cudaErrorInvalidValue;
-  // One warp per 32 lanes, at most kMaxWarps: a 33-lane block takes two.
-  int warps = (bs + 31) / 32;
-  if (warps > kMaxWarps) warps = kMaxWarps;
-  fractal_level_kernel<<<nb, warps * 32, 0,
+  fractal_level_kernel<<<(nb + kLevelWarps - 1) / kLevelWarps,
+                         kLevelWarps * 32, 0,
                          reinterpret_cast<cudaStream_t>(stream)>>>(
-      coords, mask, mid, side, lcnt, stats, bs, da, db);
+      coords, mask, mid, side, lcnt, stats, nb, bs, da, db);
   return (int)cudaGetLastError();
 }

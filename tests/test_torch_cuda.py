@@ -19,7 +19,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import fractal  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
-from repro_torch.kernels import checks, fps, ops  # noqa: E402
+from repro_torch.kernels import _build, checks, fps, ops  # noqa: E402
 from repro_torch.models import pnn  # noqa: E402
 from repro_torch.train import pnn as train  # noqa: E402
 
@@ -47,6 +47,24 @@ def test_fps_exhaustion_on_the_card(cuda_device):
     idx = fps.fps_blocks(c, m, k=7).cpu().numpy()
     assert (idx[0] == 0).all()
     assert set(idx[1][:3]) == {0, 1, 2} and (idx[1][3:] == idx[1][2]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [1, 33, 256, 512])
+def test_fps_variants_agree_where_their_widths_meet(cuda_device, bs):
+    """At widths the one-warp kernel takes, the CTA and scratch-row kernels
+    (which the wrapper keeps for wider blocks) give the same picks as the
+    plain version too, exhaustion and an empty block included."""
+    c, m = checks.scattered(80 + bs, 6, bs, cuda_device, 0.6)
+    m[0] = False
+    m[1] = False
+    m[1, bs - 1] = True
+    want = fps.fps_plain(c, m, 33)
+    for kind in fps.ENTRIES:
+        got = torch.empty_like(want)
+        _build.check(fps.launch(_build.library(), c, m, got, kind), kind)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), kind
 
 
 @pytest.mark.cuda

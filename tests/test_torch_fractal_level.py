@@ -24,6 +24,9 @@ from repro_torch.kernels.common import INF, NEG  # noqa: E402
 jax.config.update("jax_platform_name", "cpu")
 
 ODD_SHAPES = [(3, 65), (2, 200), (5, 33)]
+# Also at the edges of the one-warp kernel: a warp's width, the main
+# path's leaf, one lane past two strides of 256, and eight strides.
+LEVEL_SHAPES = ODD_SHAPES + [(2, 32), (2, 256), (2, 513), (1, 2048)]
 LADDER = [(0, False), (1, False), (0, True)]
 
 
@@ -54,7 +57,7 @@ def hold_equal(got, want):
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
-@pytest.mark.parametrize("nb,bs", ODD_SHAPES)
+@pytest.mark.parametrize("nb,bs", LEVEL_SHAPES)
 @pytest.mark.parametrize("empty,invalid", LADDER)
 def test_level_matches_jax(impl, nb, bs, empty, invalid):
     coords, mask = blocks(6, nb, bs, empty, invalid)
@@ -69,6 +72,23 @@ def test_level_matches_jax(impl, nb, bs, empty, invalid):
         assert got[0].dtype == got[1].dtype == torch.int32
         assert got[2].dtype == torch.float32
         hold_equal(got, want)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("bs", [32, 256, 513, 2048])
+def test_level_matches_jax_on_last_slots(impl, bs):
+    """Valid lanes only in the last lane each of a warp's threads takes
+    (``checks.last_slots``), beside an empty block and a prefix mask, as on
+    the card ladder."""
+    coords, mask = blocks(13, 3, bs, empty_blocks=1)
+    mask[1] = checks.last_slots(bs, "cpu").numpy()
+    mid = mids(14, 3)
+    for da, db in checks.LEVEL_DIMS:
+        want = jops.fractal_level_blocks(
+            jnp.asarray(coords), jnp.asarray(mask), jnp.asarray(mid),
+            da=da, db=db, impl=impl)
+        hold_equal(ops.fractal_level_blocks(t(coords), t(mask), t(mid),
+                                            da=da, db=db), want)
 
 
 def test_level_rules():

@@ -21,13 +21,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops  # noqa: E402
-from repro_torch.kernels import checks, ops  # noqa: E402
+from repro_torch.kernels import checks, fps, ops  # noqa: E402
 from repro_torch.kernels.checks import check_topk  # noqa: E402
 from repro_torch.kernels.common import INF  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
 ODD_SHAPES = [(3, 65), (2, 200), (5, 33)]
+# FPS also at the edges of its one-warp variant's width (fps.variant).
+FPS_SHAPES = ODD_SHAPES + [(2, 1), (3, 32), (2, 256), (2, 512), (2, 513)]
 LADDER = [(0, False), (1, False), (0, True)]
 TOL = 1e-5
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -55,7 +57,7 @@ def hold_topk(port, ref, queries, window, wmask):
     check_topk(pi, pd, ri, rd, t(queries), t(window), t(wmask), tol=TOL)
 
 
-@pytest.mark.parametrize("nb,bs", ODD_SHAPES)
+@pytest.mark.parametrize("nb,bs", FPS_SHAPES)
 @pytest.mark.parametrize("empty,invalid", LADDER)
 def test_fps_plain_matches_xla(nb, bs, empty, invalid):
     coords, mask = blocks(0, nb, bs, empty, invalid)
@@ -156,6 +158,41 @@ def test_fps_plain_matches_xla_on_a_12000_lane_block():
                                       impl="xla"))
     got = ops.fps_blocks(coords, mask, k=9)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bs", [1, 32, 33, 256, 512, 513])
+def test_fps_plain_matches_xla_at_the_variant_edges(bs):
+    """The card ladder's FPS cases at the edges of the one-warp variant
+    (``checks.fps_ladder``: only the last lane valid, two valid lanes,
+    every thread's last slot, k = 1, duplicated lattice points) against
+    the JAX package, exactly."""
+    calls = [a for _, a in checks.fps_ladder("cpu")
+             if a["mask"].shape[1] == bs]
+    assert len(calls) == 3
+    for a in calls:
+        want = np.asarray(jops.fps_blocks(
+            jnp.asarray(a["coords"].numpy()), jnp.asarray(a["mask"].numpy()),
+            k=a["k"], impl="xla"))
+        got = ops.fps_blocks(a["coords"], a["mask"], k=a["k"])
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fps_ladder_reaches_every_variant_at_both_edges():
+    """The card ladder runs every FPS variant at the narrowest and the
+    widest block it takes (the scratch-row variant has no widest)."""
+    widths = {}
+    for name, a in checks.ladder("cpu"):
+        if name == "fps_blocks":
+            bs = a["mask"].shape[1]
+            widths.setdefault(fps.variant(bs), set()).add(bs)
+    edges = {"warp": (1, fps.WARP_LANES),
+             "cta": (fps.WARP_LANES + 1, fps.REGISTER_LANES),
+             "wide": (fps.REGISTER_LANES + 1,)}
+    assert sorted(widths) == sorted(edges)
+    for v, want in edges.items():
+        assert set(want) <= widths[v], (v, sorted(widths[v]))
+        assert all(fps.variant(bs) == v for bs in want)
+    assert fps.variant(256) == "warp"                # every path's leaves
 
 
 def test_pallas_interpret_one_case_per_kernel():
