@@ -20,7 +20,9 @@ of which raises on failure:
    each thread's last slot, k=1 and duplicated lattice points; 1500-lane
    windows; ball query and kNN on scattered masks, 1-15 valid lanes at
    num=16, num/k of 1/3/16/40, windows of 8,192 and 20,000 lanes and
-   duplicated lattice points, exactly; scatter-adds over 33/128/200-row
+   duplicated lattice points, exactly; FPS, ball query, kNN and gather
+   chunked through ``kernels.ops`` with a short last chunk (7 blocks by 3,
+   1100 by 512); scatter-adds over 33/128/200-row
    windows with out-of-range, duplicate and chunked rows; partition levels
    under all three (da, db) pairs, split values beyond the extents, lanes
    at the split value, blocks of 32-2048 lanes valid only in each thread's
@@ -58,7 +60,23 @@ of which raises on failure:
    then a 1,000,000-point scene from the port's generator, made on the
    card, with every kernel's launch count read around its inference: each
    point owned by exactly one tile, finite logits, the times to generate,
-   tile and infer, and the peak device memory.
+   tile and infer, and the peak device memory;
+11. training with gradient compression: ``fit`` as in phase 7 with the
+   int8 and then the bf16 codec (error feedback), each with its launch
+   counts, losses and median step beside the uncompressed one;
+12. the PNN cells of ``repro_torch.launch.pnn_cell`` (``CELLS``):
+   PointNeXt serving at 289k points (the largest batch that fits), a
+   PointNeXt fine-tune step at 33k points, PointVector serving at 289k
+   points and PointNeXt serving at 1M points (batch 1), each with its
+   launch counts over its timed steps, step time, peak memory and
+   roofline row, and every kernel call of one of its steps (each leaf
+   chunk, the short last one included) held against its plain version on
+   that call's own inputs; one step of the first under
+   ``torch.profiler``; then PointNeXt and PointVector logits at 4096
+   points on the card against the CPU;
+13. the first training step's decompressed gradients of each codec, on
+   the card against the CPU (one 4096-point cloud), and the codec on the
+   card against the CPU on the same gradients, bit for bit.
 
 It then prints a ``{"kernels": [...]}`` line and, last, the device line.
 Without a CUDA card it exits non-zero and prints no result.
@@ -92,11 +110,13 @@ SCENE = dict(tile_points=4096, halo=0.15, th=TH, microbatch=MICROBATCH,
              variant="pointnet2")        # examples/segment_scene.py
 SCENE_SMALL_N = 16_384
 SCENE_N = 1_000_000
-# H100 SXM published rates (NVIDIA data sheet): HBM3 bytes/s and fp32
-# (non-tensor-core) operations/s.  Comparisons and selects count as fp32
-# operations.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+# The PNN cells of launch/pnn_cell.py: (variant, shape, kind, batch); no
+# batch takes the largest that fits on the card.
+CELLS = (("pointnext", "pnn_289k", "serve", None),
+         ("pointnext", "pnn_33k", "train", None),
+         ("pointvector", "pnn_289k", "serve", 1),
+         ("pointnext", "pnn_1m", "serve", 1))
+CELL_PARITY_N = 4096
 SLEEP_CYCLES_PER_S = 2.0e9   # at or above the H100's SM clock (1.98 GHz)
 LOGIT_TOL = 1e-3      # card vs CPU: float32 matmuls sum in another order
 LOGIT_SHARE = 0.999   # share of points within LOGIT_TOL
@@ -168,118 +188,18 @@ def median_ms(fn, reps: int, warmup: int = 2, batch: int = 10) -> float:
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    """The least time for ``nbytes`` and ``ops`` at the H100's published
+    HBM and float32 rates (``repro_torch.launch.roofline``); comparisons
+    and selects count as float32 operations."""
+    from repro_torch.launch import roofline
+    t_bytes = nbytes / roofline.HBM_BW * 1e3
+    t_ops = ops / roofline.PEAK_FLOPS_FP32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def work(name: str, args: dict) -> tuple[float, float]:
-    """(bytes, operations) that one call needs on these inputs: each input
-    read once and each output written once, but coordinates only of valid
-    lanes (masks in full), queries only of blocks whose window has a valid
-    lane, and for gather only the distinct in-range feature rows that the
-    indices name; operations only on valid lanes, for the steps or ranks
-    a block's valid lanes can fill."""
-    import torch
-    if name == "fps_blocks":
-        m, k = args["mask"], args["k"]
-        nb = m.shape[0]
-        nv = m.sum(1)
-        steps = (nv.clamp(max=k) - 1).clamp(min=0)
-        # a step folds the pick into each valid lane: 3 sub, 3 mul, 2 add,
-        # min, compare
-        return (int(nv.sum()) * 12 + m.numel() + nb * k * 4,
-                float((nv * steps).sum()) * 10.0)
-    if name in ("ball_query_blocks", "knn_blocks"):
-        q, wm, num = args["q"], args["wmask"], args["num"]
-        nb, nq = q.shape[:2]
-        nv = wm.sum(1)
-        live = int((nv > 0).sum())
-        # a pair: distance (8), then one compare per rank the row can fill
-        ops = float((nv * (8 + nv.clamp(max=num))).sum()) * nq
-        nbytes = (live * nq * 12 + int(nv.sum()) * 12 + wm.numel()
-                  + nb * nq * num * 8)
-        if name == "ball_query_blocks":
-            cm = args["cmask"]
-            ops += float((cm.sum(1) * nv).sum()) * 2.0   # radius test, count
-            nbytes += cm.numel() + nb * nq * 4
-        return nbytes, ops
-    if name == "fractal_level_blocks":
-        # reads the mask, the split values and two coordinates of each
-        # valid lane; writes the side bits, counts and four extrema; a
-        # valid lane costs a compare, a count and two min/max
-        m = args["mask"]
-        nb, bs = m.shape
-        nv = int(m.sum())
-        return (m.numel() + nb * 4 + nv * 8 + nb * bs * 4 + nb * 4
-                + nb * 16, float(nv) * 4.0)
-    if name == "scatter_add_blocks":
-        # reads the indices and each in-range cotangent row, writes the
-        # whole window tile; one add per in-range (row, channel)
-        g, idx, w = args["g"], args["idx"], args["w"]
-        nb, _, c = g.shape
-        rows = int(((idx >= 0) & (idx < w)).sum())
-        return idx.numel() * 4 + rows * c * 4 + nb * w * c * 4, float(rows * c)
-    f, idx = args["feats"], args["idx"]
-    nb, w, c = f.shape
-    ok = (idx >= 0) & (idx < w)
-    key = torch.arange(nb, device=idx.device)[:, None] * w + idx.long()
-    rows = int(torch.unique(key[ok]).numel())
-    return rows * c * 4 + idx.numel() * 4 + idx.numel() * c * 4, 0.0
 
 
 # ---------------------------------------------------------------------------
 # Kernel against plain.
 # ---------------------------------------------------------------------------
-
-class Recorder:
-    """Record the arguments of every kernel call that ``kernels.ops`` makes
-    (the main path's own inputs) for the length of one forward, or one
-    forward and backward, by handing ``ops`` stand-ins for its kernel
-    modules; the kernels themselves and their launch counters are
-    untouched."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __enter__(self):
-        import types
-        from repro_torch.kernels import ops
-
-        def stand_in(mod, name, to_args, **more):
-            def wrap(name, to_args):
-                orig = getattr(mod, name)
-
-                def rec(*a, **kw):
-                    self.calls.append((name, to_args(*a, **kw)))
-                    return orig(*a, **kw)
-                return rec
-            fns = {name: to_args, **more}
-            return types.SimpleNamespace(
-                **{n: wrap(n, f) for n, f in fns.items()})
-
-        self._saved = {a: getattr(ops, a) for a in ("_fps", "_bq", "_knn",
-                                                     "_ga")}
-        ops._fps = stand_in(ops._fps, "fps_blocks",
-                            lambda c, m, *, k: dict(coords=c, mask=m, k=k))
-        ops._bq = stand_in(
-            ops._bq, "ball_query_blocks",
-            lambda c, cm, w, wm, *, radius, num: dict(
-                q=c, cmask=cm, window=w, wmask=wm, radius=radius, num=num))
-        ops._knn = stand_in(
-            ops._knn, "knn_blocks",
-            lambda q, w, wm, *, k: dict(q=q, window=w, wmask=wm, num=k))
-        ops._ga = stand_in(
-            ops._ga, "gather_blocks", lambda f, i: dict(feats=f, idx=i),
-            scatter_add_blocks=lambda g, i, *, w: dict(g=g, idx=i, w=w))
-        return self
-
-    def __exit__(self, *exc):
-        from repro_torch.kernels import ops
-        for alias, mod in self._saved.items():
-            setattr(ops, alias, mod)
-        return False
-
 
 def library_calls(name, args) -> dict:
     """PyTorch calls that compute the same function on these inputs, where
@@ -403,7 +323,7 @@ def hold_and_time(calls) -> dict:
         libs = {label: median_ms(fn, reps=20)
                 for label, fn in library_calls(name, args).items()}
         lib_ms = min(libs.values()) if libs else None
-        nbytes, ops = work(name, args)
+        nbytes, ops = checks.work(name, args)
         bms, by = bound_ms(nbytes, ops)
         log(f"  {name:18s} {shape_of(name, args):38s} kernel {ms:.4f} ms  "
             f"plain {plain_ms:.4f} ms  bound {bms:.5f} ms ({by}: "
@@ -430,8 +350,9 @@ def phase_main_path_kernels(engine):
     """Record the kernel inputs of one full microbatch of the largest
     bucket, served through the engine, then hold and time every kernel
     call on them."""
+    from repro_torch.kernels import checks
     b = BUCKETS[-1]
-    with Recorder() as rec:
+    with checks.Recorder() as rec:
         rids = [engine.submit(clustered_cloud(b, 100 + i))
                 for i in range(MICROBATCH)]
         engine.flush()
@@ -852,25 +773,33 @@ def phase_train():
     log("losses: " + " ".join(f"{x:.4f}" for x in losses))
     log("step ms: " + " ".join(f"{x:.1f}" for x in dts))
     log(f"launches during training: {launches}")
-    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
-        raise AssertionError(f"training: bad losses {losses}")
-    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-    log(f"mean loss, first 5 steps {first:.4f}, last 5 steps {last:.4f}")
-    if not last < first:
-        raise AssertionError("training: the loss did not fall")
+    hold_losses(losses, "training")
     idle = [k for k in TRAINING if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels not launched in training: {idle}")
-    return cfg, model, state, launches
+    return cfg, model, state, launches, statistics.median(dts)
+
+
+def hold_losses(losses, title: str) -> None:
+    """TRAIN_STEPS finite losses whose last 5 average below their first 5,
+    or raise."""
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"{title}: bad losses {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    log(f"{title}: mean loss, first 5 steps {first:.4f}, last 5 steps "
+        f"{last:.4f}")
+    if not last < first:
+        raise AssertionError(f"{title}: the loss did not fall")
 
 
 def phase_train_kernels(cfg, model):
     """Record the kernel calls of one training step's forward and backward
     at full size, check that every parameter gets a gradient, and hold and
     time the gather's backward on that step's own cotangents."""
+    from repro_torch.kernels import checks
     from repro_torch.train import pnn as train
     mcfg = train.model_config(cfg)
-    with Recorder() as rec:
+    with checks.Recorder() as rec:
         grads, _ = train.grads_fn(model, mcfg)(train.param_dict(model),
                                                first_batch(cfg, "cuda"))
     silent = [k for k, g in grads.items() if not bool(g.abs().sum() > 0)]
@@ -907,6 +836,171 @@ def phase_profile_train(cfg, model, state):
                    f"({cfg.batch}x{cfg.n_points})", top=12)
 
 
+def phase_train_compressed(plain_ms: float) -> dict:
+    """``fit`` with each gradient codec (error feedback, keyed by (seed,
+    step)) for TRAIN_STEPS steps at TRAIN_BATCH x TRAIN_N points, with
+    every kernel's launch count read around each run; the median step
+    beside the uncompressed run's.  Returns {codec: its run's launches}."""
+    import dataclasses
+    import torch
+    from repro_torch.dist import compression
+    from repro_torch.kernels import ops
+    from repro_torch.train import pnn as train
+    total = {}
+    for method in compression.METHODS[::-1]:          # int8, then bf16
+        cfg = dataclasses.replace(train_cfg(TRAIN_N, TRAIN_BATCH),
+                                  grad_compression=method)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        _, _, info = train.fit(cfg, log=log)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        losses = [h["loss"] for h in info["history"]]
+        dts = [h["dt"] * 1e3 for h in info["history"]]
+        log(f"trained {len(losses)} steps of {cfg.batch}x{cfg.n_points} "
+            f"points with {method} compression: median step "
+            f"{statistics.median(dts):.1f} ms against {plain_ms:.1f} ms "
+            f"uncompressed (first {dts[0]:.1f} ms), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"{method} losses: " + " ".join(f"{x:.4f}" for x in losses))
+        log(f"{method} step ms: " + " ".join(f"{x:.1f}" for x in dts))
+        log(f"launches during {method} training: {launches}")
+        hold_losses(losses, f"{method} training")
+        idle = [k for k in TRAINING if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"kernels not launched in {method} "
+                                 f"training: {idle}")
+        total[method] = launches
+    return total
+
+
+def phase_compressed_grads(n: int, batch: int):
+    """The first training step's decompressed gradients (error feedback
+    from a zero residual, key (seed, 0), as ``fit`` runs it) on the card
+    against the CPU, from the same weights and batch, by
+    ``checks.hold_grads``, for each codec; and the codec itself on the
+    card against the CPU on the card's raw gradients, bit for bit."""
+    import copy
+    import torch
+    from repro_torch.dist import compression
+    from repro_torch.kernels import checks
+    from repro_torch.models import pnn
+    from repro_torch.train import pnn as train
+    cfg = train_cfg(n, batch)
+    mcfg = train.model_config(cfg)
+    model = pnn.init(mcfg, torch.Generator().manual_seed(cfg.seed))
+    want, _ = train.grads_fn(model, mcfg)(train.param_dict(model),
+                                          first_batch(cfg, "cpu"))
+    card = copy.deepcopy(model).cuda()
+    got, _ = train.grads_fn(card, mcfg)(train.param_dict(card),
+                                        first_batch(cfg, "cuda"))
+    got_cpu = {k: g.cpu() for k, g in got.items()}
+    key = (cfg.seed, 0)
+    for method in compression.METHODS:
+        def ef(grads):
+            return compression.apply_error_feedback(
+                grads, compression.init_residual(grads), method, key)
+        (dg, rg), (dw, _), (dx, rx) = ef(got), ef(want), ef(got_cpu)
+        same = all(torch.equal(dg[k].cpu(), dx[k])
+                   and torch.equal(rg[k].cpu(), rx[k]) for k in dg)
+        log(f"{method} codec on the card's gradients, card vs CPU: "
+            f"{'bit for bit' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"{method}: the codec on the card differs "
+                                 f"from the CPU's on the same gradients")
+        rel = checks.hold_grads(dg, dw)
+        worst = max(rel, key=rel.get)
+        log(f"{method} decompressed gradients {batch}x{n}, card vs CPU: all "
+            f"{len(dg)} parameters non-zero on the card; largest relative "
+            f"L2 difference {rel[worst]:.3g} ({worst}; rule <= "
+            f"{checks.GRAD_REL_TOL})")
+
+
+def phase_cells() -> tuple[dict, int]:
+    """The paper's PNN cells through ``launch.pnn_cell.run_pnn_cell`` (a
+    batch cut to what fits where none is given): each cell's row, every
+    kernel call of one step held against its plain version (the cell
+    raises on a difference), the launches of its timed steps, and the
+    roofline table.  Returns ({cell: its timed steps' launches}, the
+    first cell's batch)."""
+    import torch
+    from repro_torch.launch import pnn_cell, roofline
+    rows, total = [], {}
+    for variant, shape, kind, batch in CELLS:
+        torch.cuda.empty_cache()
+        d = pnn_cell.run_pnn_cell(variant, shape, batch=batch, kind=kind)
+        launches = d["launches"]
+        cut = (f"batch {d['batch']} of the reference's {d['ref_batch']}"
+               + (f" (probe at batch 1: {d['probe']['probe_base_gib']:.2f} "
+                  f"GiB before the step, {d['probe']['probe_step_gib']:.2f} "
+                  f"GiB a cloud; estimate {d['probe']['estimate_gib']:.2f} "
+                  f"GiB)" if d["probe"] else " (given)"))
+        log(f"cell {variant} x {d['shape']}: {cut}; step "
+            f"{d['step_s'] * 1e3:.2f} ms (median of {len(d['steps_s'])}: "
+            + " / ".join(f"{t * 1e3:.2f}" for t in d["steps_s"])
+            + f"), warm {d['warm_s']:.2f} s, peak "
+            f"{d['mem_per_device']['peak_mb'] / 1024:.2f} GiB; counted "
+            f"{d['hlo_flops_per_chip']:.4g} flop, {d['hlo_bytes_per_chip']:.4g}"
+            f" B: t_compute {d['t_compute_s'] * 1e3:.3f} ms, t_memory "
+            f"{d['t_memory_s'] * 1e3:.3f} ms ({d['bottleneck']}, "
+            f"{d['bound_fraction'] * 100:.2f}% of the step), useful flops "
+            f"{d['model_flops']:.4g} ({d['usefulness'] * 100:.1f}%); kernel "
+            f"calls a step {d['kernel_calls']}; launches over the timed steps "
+            f"{launches}; cell {d['total_s']:.1f} s")
+        for name, h in d["held"].items():
+            b = h["blocks"]
+            log(f"  held {name}: {len(b)} calls of one step match their "
+                f"plain versions (max|err| {h['max_abs_err']:.3g}, count "
+                f"rows {h['count_rows']}); blocks a call: first {b[0]}, "
+                f"last {b[-1]}, sizes {sorted(set(b))}")
+        need = TRAINING if kind == "train" else SERVING
+        idle = [k for k in need if launches[k] == 0 or k not in d["held"]]
+        if idle:
+            raise AssertionError(f"cell {variant} x {shape}: kernels not "
+                                 f"launched or not held: {idle}")
+        total[f"{variant} x {d['shape']}"] = launches
+        rows.append(d)
+    log(roofline.format_table(rows))
+    return total, rows[0]["batch"]
+
+
+def phase_profile_cell(batch: int):
+    """One step of the first cell (PointNeXt serving at 289k points, at
+    the batch ``phase_cells`` ran) under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import pnn_cell
+    variant, shape, kind, _ = CELLS[0]
+    cell = pnn_cell.make_cell(variant, shape, batch=batch, kind=kind)
+    cell.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        cell.step()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    report_profile(prof, wall_us, f"profile cell {variant} x {shape} "
+                   f"({kind}, batch {batch})", top=12)
+
+
+def phase_cell_parity():
+    """PointNeXt and PointVector logits on the card against the CPU (plain
+    versions, same weights and clouds) at CELL_PARITY_N points, by
+    ``hold_logits``."""
+    import copy
+    from repro_torch.launch import pnn_cell
+    shape = pnn_cell.PNNShape("parity", CELL_PARITY_N, 2, TH)
+    for variant in ("pointnext", "pointvector"):
+        cell = pnn_cell.make_cell(variant, shape, device="cuda")
+        got = cell.step().cpu().numpy()
+        cpu = pnn_cell.make_cell(variant, shape, device="cpu",
+                                 params=copy.deepcopy(cell.model).cpu())
+        want = cpu.step().numpy()
+        hold_logits(list(zip(got, want)), f"{variant} {CELL_PARITY_N}")
+
+
 def main() -> int:
     try:
         import torch
@@ -941,10 +1035,16 @@ def main() -> int:
     del engine
     phase_grad_parity(PARITY_N, 1)
     phase_grad_parity(TRAIN_N, TRAIN_BATCH)
-    cfg, model, state, train_launches = phase_train()
+    cfg, model, state, train_launches, plain_ms = phase_train()
     rows.update(phase_train_kernels(cfg, model))
     launches["scatter_add_blocks"] = train_launches["scatter_add_blocks"]
     phase_profile_train(cfg, model, state)
+    del model, state
+    compressed = phase_train_compressed(plain_ms)
+    cells, cell_batch = phase_cells()
+    phase_profile_cell(cell_batch)
+    phase_cell_parity()
+    phase_compressed_grads(PARITY_N, 1)
 
     kernels = []
     for name in REPLACES:
@@ -959,10 +1059,12 @@ def main() -> int:
         f"of the {MICROBATCH}x{BUCKETS[-1]} serving microbatch, for "
         f"scatter_add_blocks of one {TRAIN_BATCH}x{TRAIN_N} training step, "
         f"and for fractal_level_blocks one call on that microbatch's leaf "
-        f"blocks, (da, db) = {LEVEL_DIMS_TIMED}; launches: the serving run, "
-        f"for scatter_add_blocks the {TRAIN_STEPS} training steps "
-        f"(fractal_level_blocks is on no path); launches in the 1M scene "
-        f"run: {scene_launches}; card: {smi}; total "
+        f"blocks, (da, db) = {LEVEL_DIMS_TIMED}; launches: the serving run "
+        f"(for scatter_add_blocks the {TRAIN_STEPS} training steps; "
+        f"fractal_level_blocks is on no path); launches on the other paths, "
+        f"each read around its own run: the compressed trainings "
+        f"{compressed}, the PNN cells' timed steps {cells}, the 1M scene's "
+        f"inference {scene_launches}; card: {smi}; total "
         f"{time.monotonic() - t_start:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

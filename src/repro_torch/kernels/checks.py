@@ -31,6 +31,10 @@ The partition level, ``fractal_level_blocks``, has its own too
 side empty), lanes exactly at the split value, blocks of 32, 256, 513 and
 2048 lanes with valid lanes only in every thread's last slot, and a run
 chunked through ``ops.fractal_level_blocks`` against an unchunked one.
+FPS, ball query, kNN and gather also run chunked through ``kernels.ops``
+(``chunk_ladder``), as a model with ``leaf_chunk`` calls them: each chunk
+a view into the middle of the block axis and the last chunk shorter,
+against the plain version on the whole block axis.
 
 Rules:
 
@@ -191,7 +195,33 @@ def ladder(device) -> list:
                                             wmask=m, radius=0.5, num=16)))
     calls.append(("knn_blocks", dict(q=cen, window=c, wmask=m, num=3)))
     return (calls + fps_ladder(device) + topk_ladder(device)
-            + scatter_ladder(device) + level_ladder(device))
+            + chunk_ladder(device) + scatter_ladder(device)
+            + level_ladder(device))
+
+
+def chunk_ladder(device) -> list:
+    """[(name, arguments with ``chunk``)] of FPS, ball query, kNN and
+    gather run ``chunk`` blocks at a time through ``kernels.ops``: 7 blocks
+    by 3 (a last chunk of one block) and 1100 blocks by 512, the models'
+    ``leaf_chunk`` (a last chunk of 76)."""
+    calls = []
+    for nb, chunk, seed in ((7, 3, 80), (1100, 512, 81)):
+        c, m = blocks(seed, nb, 64, device, empty=1)
+        cen, cm = blocks(seed + 10, nb, 13, device, empty=1)
+        calls.append(("fps_blocks", dict(coords=c, mask=m, k=7,
+                                         chunk=chunk)))
+        calls.append(("ball_query_blocks", dict(
+            q=cen, cmask=cm, window=c, wmask=m, radius=0.8, num=5,
+            chunk=chunk)))
+        calls.append(("knn_blocks", dict(q=cen, window=c, wmask=m, num=3,
+                                         chunk=chunk)))
+        rng = np.random.default_rng(seed + 20)
+        f = torch.from_numpy(rng.normal(0, 1, (nb, 64, 9)).astype(
+            np.float32)).to(device)
+        idx = torch.from_numpy(rng.integers(-3, 67, (nb, 17)).astype(
+            np.int32)).to(device)
+        calls.append(("gather_blocks", dict(feats=f, idx=idx, chunk=chunk)))
+    return calls
 
 
 def last_slots(bs, device):
@@ -314,24 +344,28 @@ def _gather_grad(g, idx, w, chunk):
 
 
 def runners(name: str, args: dict):
-    """(kernel call, plain call) on one call's arguments."""
+    """(kernel call, plain call) on one call's arguments; with ``chunk``
+    the kernel runs through ``kernels.ops`` that many blocks at a time,
+    and the plain version on the whole block axis."""
+    chunk = args.get("chunk")
     if name == "fps_blocks":
         c, m, k = args["coords"], args["mask"], args["k"]
-        return (lambda: fps.fps_blocks(c, m, k=k),
+        return ((lambda: ops.fps_blocks(c, m, k=k, chunk=chunk)) if chunk
+                else (lambda: fps.fps_blocks(c, m, k=k)),
                 lambda: fps.fps_plain(c, m, k))
     if name == "gather_blocks":
         f, i = args["feats"], args["idx"]
-        return (lambda: gather.gather_blocks(f, i),
+        return ((lambda: ops.gather_blocks(f, i, chunk=chunk)) if chunk
+                else (lambda: gather.gather_blocks(f, i)),
                 lambda: gather.gather_plain(f, i))
     if name == "scatter_add_blocks":
-        g, i, w, chunk = args["g"], args["idx"], args["w"], args.get("chunk")
+        g, i, w = args["g"], args["idx"], args["w"]
         return ((lambda: _gather_grad(g, i, w, chunk)) if chunk
                 else (lambda: gather.scatter_add_blocks(g, i, w=w)),
                 lambda: gather.scatter_add_plain(g, i, w=w))
     if name == "fractal_level_blocks":
         c, m, mid = args["coords"], args["mask"], args["mid"]
         kw = dict(da=args["da"], db=args["db"])
-        chunk = args.get("chunk")
         return ((lambda: ops.fractal_level_blocks(c, m, mid, chunk=chunk,
                                                   **kw)) if chunk
                 else (lambda: fractal_level.fractal_level_blocks(c, m, mid,
@@ -340,11 +374,15 @@ def runners(name: str, args: dict):
     q, w, wm, num = args["q"], args["window"], args["wmask"], args["num"]
     if name == "ball_query_blocks":
         cm, r = args["cmask"], args["radius"]
-        return (lambda: ball_query.ball_query_blocks(q, cm, w, wm, radius=r,
-                                                     num=num),
+        return ((lambda: ops.ball_query_blocks(q, cm, w, wm, radius=r,
+                                               num=num, chunk=chunk))
+                if chunk else
+                (lambda: ball_query.ball_query_blocks(q, cm, w, wm, radius=r,
+                                                      num=num)),
                 lambda: ball_query.ball_query_plain(q, cm, w, wm, radius=r,
                                                     num=num))
-    return (lambda: knn.knn_blocks(q, w, wm, k=num),
+    return ((lambda: ops.knn_blocks(q, w, wm, k=num, chunk=chunk)) if chunk
+            else (lambda: knn.knn_blocks(q, w, wm, k=num)),
             lambda: knn.knn_plain(q, w, wm, k=num))
 
 
@@ -467,3 +505,118 @@ def hold_grads(card: dict, cpu: dict, tol: float = GRAD_REL_TOL) -> dict:
         raise AssertionError(f"gradients differ from the CPU's beyond {tol} "
                              f"(relative L2): {bad}")
     return rel
+
+
+# ---------------------------------------------------------------------------
+# The work a call needs, and the main path's own calls.
+# ---------------------------------------------------------------------------
+
+def work(name: str, args: dict) -> tuple[float, float]:
+    """(bytes, operations) that one call needs on these inputs: each input
+    read once and each output written once, but coordinates only of valid
+    lanes (masks in full), queries only of blocks whose window has a valid
+    lane, and for gather only the distinct in-range feature rows that the
+    indices name; operations only on valid lanes, for the steps or ranks
+    a block's valid lanes can fill."""
+    if name == "fps_blocks":
+        m, k = args["mask"], args["k"]
+        nb = m.shape[0]
+        nv = m.sum(1)
+        steps = (nv.clamp(max=k) - 1).clamp(min=0)
+        # a step folds the pick into each valid lane: 3 sub, 3 mul, 2 add,
+        # min, compare
+        return (int(nv.sum()) * 12 + m.numel() + nb * k * 4,
+                float((nv * steps).sum()) * 10.0)
+    if name in ("ball_query_blocks", "knn_blocks"):
+        q, wm, num = args["q"], args["wmask"], args["num"]
+        nb, nq = q.shape[:2]
+        nv = wm.sum(1)
+        live = int((nv > 0).sum())
+        # a pair: distance (8), then one compare per rank the row can fill
+        ops_ = float((nv * (8 + nv.clamp(max=num))).sum()) * nq
+        nbytes = (live * nq * 12 + int(nv.sum()) * 12 + wm.numel()
+                  + nb * nq * num * 8)
+        if name == "ball_query_blocks":
+            cm = args["cmask"]
+            ops_ += float((cm.sum(1) * nv).sum()) * 2.0   # radius test, count
+            nbytes += cm.numel() + nb * nq * 4
+        return nbytes, ops_
+    if name == "fractal_level_blocks":
+        # reads the mask, the split values and two coordinates of each
+        # valid lane; writes the side bits, counts and four extrema; a
+        # valid lane costs a compare, a count and two min/max
+        m = args["mask"]
+        nb, bs = m.shape
+        nv = int(m.sum())
+        return (m.numel() + nb * 4 + nv * 8 + nb * bs * 4 + nb * 4
+                + nb * 16, float(nv) * 4.0)
+    if name == "scatter_add_blocks":
+        # reads the indices and each in-range cotangent row, writes the
+        # whole window tile; one add per in-range (row, channel)
+        g, idx, w = args["g"], args["idx"], args["w"]
+        nb, _, c = g.shape
+        rows = int(((idx >= 0) & (idx < w)).sum())
+        return idx.numel() * 4 + rows * c * 4 + nb * w * c * 4, float(rows * c)
+    f, idx = args["feats"], args["idx"]
+    nb, w, c = f.shape
+    ok = (idx >= 0) & (idx < w)
+    key = torch.arange(nb, device=idx.device)[:, None] * w + idx.long()
+    rows = int(torch.unique(key[ok]).numel())
+    return rows * c * 4 + idx.numel() * 4 + idx.numel() * c * 4, 0.0
+
+
+class Recorder:
+    """Record the arguments of every kernel call that ``kernels.ops`` makes
+    (the main path's own inputs) for the length of one forward, or one
+    forward and backward, by handing ``ops`` stand-ins for its kernel
+    modules; the kernels themselves and their launch counters are
+    untouched.  ``calls`` holds (name, arguments), or with ``tally`` (name,
+    ``tally(name, arguments)``), computed at the call so the arguments can
+    be freed.  A call (and its tally) runs with any ``TorchDispatchMode``
+    around it suspended, so a mode that counts the path's operations sees
+    none of the kernel's own (``work`` counts those)."""
+
+    def __init__(self, tally=None):
+        self.calls = []
+        self.tally = tally
+
+    def __enter__(self):
+        import types
+
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        def stand_in(mod, name, to_args, **more):
+            def wrap(name, to_args):
+                orig = getattr(mod, name)
+
+                def rec(*a, **kw):
+                    with _disable_current_modes():
+                        args = to_args(*a, **kw)
+                        self.calls.append((name, args if self.tally is None
+                                           else self.tally(name, args)))
+                        return orig(*a, **kw)
+                return rec
+            fns = {name: to_args, **more}
+            return types.SimpleNamespace(
+                **{n: wrap(n, f) for n, f in fns.items()})
+
+        self._saved = {a: getattr(ops, a) for a in ("_fps", "_bq", "_knn",
+                                                     "_ga")}
+        ops._fps = stand_in(ops._fps, "fps_blocks",
+                            lambda c, m, *, k: dict(coords=c, mask=m, k=k))
+        ops._bq = stand_in(
+            ops._bq, "ball_query_blocks",
+            lambda c, cm, w, wm, *, radius, num: dict(
+                q=c, cmask=cm, window=w, wmask=wm, radius=radius, num=num))
+        ops._knn = stand_in(
+            ops._knn, "knn_blocks",
+            lambda q, w, wm, *, k: dict(q=q, window=w, wmask=wm, num=k))
+        ops._ga = stand_in(
+            ops._ga, "gather_blocks", lambda f, i: dict(feats=f, idx=i),
+            scatter_add_blocks=lambda g, i, *, w: dict(g=g, idx=i, w=w))
+        return self
+
+    def __exit__(self, *exc):
+        for alias, mod in self._saved.items():
+            setattr(ops, alias, mod)
+        return False

@@ -1,11 +1,13 @@
 """Fault-tolerant training loop: checkpoint/restart, straggler monitoring,
-resumable data.
+resumable data, optional gradient compression with error feedback.
 
 Counterpart of ``repro.train.loop``.  ``params`` is a dict {name: tensor}
 that the step updates in place (``optimizer.update``); a restored
 checkpoint is copied into those same tensors, so a model whose parameters
-they are sees it.  Gradient compression (``repro.dist.compression``) is
-not ported: on one card there is nothing to compress.
+they are sees it.  With ``grad_compression`` set, each step's gradients go
+through ``repro_torch.dist.compression``'s error feedback (keyed by
+``(seed, step)``) before AdamW, as the reference does on any number of
+devices; the residual is not checkpointed.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.dist import compression
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.monitor import StepMonitor
@@ -27,7 +30,8 @@ class LoopConfig:
     ckpt_every: int = 50
     log_every: int = 10
     keep: int = 3
-    grad_compression: str = "none"   # none (bf16 | int8 are not ported)
+    grad_compression: str = "none"   # none | bf16 | int8
+    seed: int = 0
 
 
 @torch.no_grad()
@@ -43,15 +47,12 @@ def run(loop_cfg: LoopConfig, *, init_params: Callable,
     ``total_steps``, checkpoint asynchronously, record stragglers.
 
     ``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)`` with ``metrics["loss"]`` a scalar tensor; ``fail_at``
-    injects a crash (fault-tolerance tests).  Each step is timed up to the
-    read of its loss, which waits for everything the step queued on the
-    card.  Returns (params, opt_state, {"history", "monitor"})."""
-    if loop_cfg.grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression={loop_cfg.grad_compression!r}: the "
-            f"error-feedback codecs of repro/dist/compression.py are not "
-            f"ported yet (one card has no gradient to compress)")
+    metrics)`` with ``metrics["loss"]`` a scalar tensor, and, when
+    ``grad_compression`` is set, ``train_step(params, opt_state, batch,
+    return_grads=True) -> (grads, metrics)``; ``fail_at`` injects a crash
+    (fault-tolerance tests).  Each step is timed up to the read of its
+    loss, which waits for everything the step queued on the card.  Returns
+    (params, opt_state, {"history", "monitor"})."""
     opt_cfg = opt_cfg or opt_lib.OptConfig(total_steps=loop_cfg.total_steps)
     if params is None:
         params = init_params()
@@ -59,6 +60,8 @@ def run(loop_cfg: LoopConfig, *, init_params: Callable,
     start_step = 0
     saver = (ckpt_lib.AsyncCheckpointer(loop_cfg.ckpt_dir, loop_cfg.keep)
              if loop_cfg.ckpt_dir else None)
+    residual = (compression.init_residual(params)
+                if loop_cfg.grad_compression != "none" else None)
 
     if saver and (last := ckpt_lib.latest_step(loop_cfg.ckpt_dir)) is not None:
         state, manifest = ckpt_lib.restore(
@@ -79,7 +82,17 @@ def run(loop_cfg: LoopConfig, *, init_params: Callable,
             raise RuntimeError(f"injected failure at step {step}")
         batch = next_batch(step)
         t0 = time.monotonic()
-        params, opt_state, metrics = train_step(params, opt_state, batch)
+        if residual is not None:
+            grads, metrics = train_step(params, opt_state, batch,
+                                        return_grads=True)
+            grads, residual = compression.apply_error_feedback(
+                grads, residual, loop_cfg.grad_compression,
+                (loop_cfg.seed, step))
+            params, opt_state, om = opt_lib.update(opt_cfg, grads,
+                                                   opt_state, params)
+            metrics = {**metrics, **om}
+        else:
+            params, opt_state, metrics = train_step(params, opt_state, batch)
         loss = float(metrics["loss"])
         dt = time.monotonic() - t0
         straggler = monitor.record(step, dt)

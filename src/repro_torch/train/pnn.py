@@ -14,6 +14,8 @@ It runs on the card unless asked for the CPU::
       --n 16384 --th 256 --batch 8 --steps 20
   PYTHONPATH=src python -m repro_torch.train.pnn --preset pointnet2_seg \\
       --n 256 --th 64 --batch 2 --steps 3 --device cpu
+  PYTHONPATH=src python -m repro_torch.train.pnn --preset pointnet2_seg \\
+      --n 256 --th 64 --batch 2 --steps 3 --compression int8 --device cpu
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ class TrainConfig:
     leaf_chunk: int | None = None
     ckpt_dir: str = ""
     ckpt_every: int = 50
-    grad_compression: str = "none"   # none (bf16 | int8 are not ported)
+    grad_compression: str = "none"   # none | bf16 | int8
     device: str | None = None        # None: the card; "cpu": plain versions
 
 
@@ -109,11 +111,16 @@ def grads_fn(model: pnn.PNN, mcfg: pnn.PNNConfig):
 def make_train_step(model: pnn.PNN, mcfg: pnn.PNNConfig,
                     opt_cfg: opt_lib.OptConfig):
     """One AdamW step on ``model``'s parameters (in place):
-    ``step(params, opt_state, batch) -> (params, opt_state, metrics)``."""
+    ``step(params, opt_state, batch) -> (params, opt_state, metrics)``;
+    ``return_grads=True`` hands the raw grads back instead, ``(grads,
+    metrics)``, for the loop's gradient-compression / error-feedback
+    path."""
     grads = grads_fn(model, mcfg)
 
-    def step(params, opt_state, batch):
+    def step(params, opt_state, batch, return_grads=False):
         g, metrics = grads(params, batch)
+        if return_grads:
+            return g, metrics
         params, opt_state, om = opt_lib.update(opt_cfg, g, opt_state, params)
         return params, opt_state, {**metrics, **om}
 
@@ -146,7 +153,7 @@ def fit(cfg: TrainConfig, params: pnn.PNN | None = None, log=print):
     loop_cfg = loop_lib.LoopConfig(
         total_steps=cfg.steps, ckpt_dir=cfg.ckpt_dir,
         ckpt_every=cfg.ckpt_every, log_every=max(1, cfg.steps // 5),
-        grad_compression=cfg.grad_compression)
+        grad_compression=cfg.grad_compression, seed=cfg.seed)
     _, opt_state, info = loop_lib.run(
         loop_cfg, init_params=lambda: param_dict(model),
         train_step=make_train_step(model, mcfg, opt_cfg),
@@ -167,15 +174,18 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--leaf-chunk", type=int, default=None)
     ap.add_argument("--ckpt", default="")
+    ap.add_argument("--compression", default="none",
+                    choices=["none", "bf16", "int8"])
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' runs the plain "
                          "versions")
     args = ap.parse_args(argv)
 
     cfg = TrainConfig(preset=args.preset, n_points=args.n, th=args.th,
-                      point_ops=args.point_ops, batch=args.batch, steps=args.steps, lr=args.lr,
-                      seed=args.seed, leaf_chunk=args.leaf_chunk,
-                      ckpt_dir=args.ckpt, device=args.device)
+                      point_ops=args.point_ops, batch=args.batch,
+                      steps=args.steps, lr=args.lr, seed=args.seed,
+                      leaf_chunk=args.leaf_chunk, ckpt_dir=args.ckpt,
+                      grad_compression=args.compression, device=args.device)
     _, _, info = fit(cfg)
     h = info["history"]
     if h:

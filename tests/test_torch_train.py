@@ -213,9 +213,11 @@ def toy_problem():
     def next_batch(step):
         return target
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, return_grads=False):
         grads = {"w": 2 * (params["w"] - batch)}
         loss = ((params["w"] - batch) ** 2).sum()
+        if return_grads:
+            return grads, {"loss": loss}
         params, opt_state, m = opt_lib.update(TOY_OPT, grads, opt_state,
                                               params)
         return params, opt_state, {"loss": loss, **m}
@@ -253,12 +255,34 @@ class TestLoop:
         assert info["history"][-1]["loss"] < info["history"][0]["loss"]
 
     def test_grad_compression_is_not_ported(self):
+        """Compression is ported now (``repro_torch.dist.compression``): an
+        unknown method raises ``ValueError`` naming ``METHODS``, as the
+        reference's codec does."""
         init_params, train_step, next_batch, _ = toy_problem()
-        with pytest.raises(NotImplementedError, match="compression"):
+        with pytest.raises(ValueError, match=r"unknown compression method "
+                           r"'fp4'; have \('bf16', 'int8'\)"):
             loop_lib.run(loop_lib.LoopConfig(total_steps=1,
-                                             grad_compression="int8"),
+                                             grad_compression="fp4"),
                          init_params=init_params, train_step=train_step,
-                         next_batch=next_batch)
+                         next_batch=next_batch, log=lambda *_: None)
+
+    @pytest.mark.parametrize("method", ["bf16", "int8"])
+    def test_error_feedback_trains_and_repeats(self, method):
+        """The error-feedback branch reaches the optimum, and a second run
+        repeats the first exactly: the stream is keyed by (seed, step)."""
+        init_params, train_step, next_batch, target = toy_problem()
+        cfg = loop_lib.LoopConfig(total_steps=60, log_every=1000,
+                                  grad_compression=method, seed=3)
+        params, state, info = loop_lib.run(
+            cfg, init_params=init_params, train_step=train_step,
+            next_batch=next_batch, opt_cfg=TOY_OPT, log=lambda *_: None)
+        assert state["step"] == 60
+        assert float((params["w"] - target).abs().max()) < 0.15
+        assert info["history"][-1]["loss"] < info["history"][0]["loss"]
+        again, _, _ = loop_lib.run(
+            cfg, init_params=init_params, train_step=train_step,
+            next_batch=next_batch, opt_cfg=TOY_OPT, log=lambda *_: None)
+        assert torch.equal(again["w"], params["w"])
 
 
 class TestMonitor:
