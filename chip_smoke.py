@@ -10,7 +10,15 @@ of which raises on failure:
 
 1. the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the float32 matmul settings (TF32 off, "highest");
-2. build every kernel of ``src/repro_torch/kernels/csrc`` with nvcc;
+2. build every kernel of ``src/repro_torch/kernels/csrc`` with nvcc; then
+   ``repro_torch.analysis``: the port's tree lints clean under --strict,
+   the interface matrix is clean on the card (each public op's specs
+   chunked and not, card against CPU, and against its plain version), and
+   every launch of the matrix and of the paths' largest shapes fits the
+   card (whole warps within the function's thread limit, grid within the
+   device's, shared memory within the opt-in limit, no spills), read from
+   the launchers' own geometry; one line a kernel variant (registers,
+   local bytes, shared memory, threads, CTAs an SM); any finding fails;
 3. hold each hand-written kernel against its plain PyTorch version on the
    same CUDA tensors, by the rules of ``repro_torch.kernels.checks``: on
    its odd ladder (block sizes 65/200/33, empty blocks, all-invalid masks,
@@ -288,6 +296,37 @@ def phase_build():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {src}: {line.strip()}")
+
+
+def phase_analysis(smi: str):
+    """The contract linter and the interface checks of
+    ``repro_torch.analysis`` on the card; raises on any finding, or if a
+    kernel variant of the library was reached by no checked launch."""
+    from repro_torch.analysis import abstract, report, walker
+    t0 = time.monotonic()
+    findings = walker.lint_tree()
+    findings += abstract.run_matrix_checks(device="cuda")
+    launch_findings, rows = abstract.run_launch_checks()
+    findings += launch_findings
+    log(f"analysis ({smi}): lint + {len(abstract.MATRIX)}-row interface "
+        f"matrix on cpu and cuda + {sum(r['launches'] for r in rows.values())}"
+        f" launch geometries in {time.monotonic() - t0:.1f} s")
+    for name in abstract.all_variants():
+        if name not in rows:
+            continue
+        r = rows[name]
+        log(f"  {name:26s} {r['source']:17s} {r['num_regs']:3d} registers, "
+            f"{r['local_bytes']} local bytes, {r['static_smem']} static + "
+            f"<= {r['max_smem']} dynamic shared bytes, threads "
+            f"{sorted(r['threads'])}, >= {r['min_ctas_per_sm']} CTAs/SM, "
+            f"{r['launches']} launches checked")
+    missing = sorted(set(abstract.all_variants()) - set(rows))
+    if missing:
+        raise AssertionError(f"analysis: no checked launch reached {missing}")
+    for f in report.sort_findings(findings):
+        log(f"  {f.format()}")
+    if findings:
+        raise AssertionError(f"analysis: {report.summarize(findings)}")
 
 
 def phase_ladder(device):
@@ -1019,6 +1058,7 @@ def main() -> int:
     t_start = time.monotonic()
     smi = phase_device()
     phase_build()
+    phase_analysis(smi)
     phase_ladder("cuda")
     engine = make_engine(None)
     log(f"warm: {engine.warm()}")

@@ -12,7 +12,7 @@ and ``knn_blocks`` calls of one 4 x 65,536 serving microbatch, recorded as
 seed), and the ``fractal_level_blocks`` call that ``chip_smoke.py`` times
 on that microbatch's leaf blocks (each split at its valid midpoint, (da,
 db) = ``chip_smoke.LEVEL_DIMS_TIMED``).  Times are medians of 20 samples
-of ``chip_smoke.median_ms``; bounds are ``chip_smoke.work``'s.
+of ``chip_smoke.median_ms``; bounds are ``kernels.checks.work``'s.
 
 ``attribute`` splits each kernel's time (this tree's build, or that of
 ``DIR``): every block against only the live blocks (a block or window
@@ -91,10 +91,11 @@ def record():
     largest bucket, in the order the forward makes them, then the timed
     partition-level call on that microbatch's leaf blocks."""
     import torch
+    from repro_torch.kernels import checks
     engine = smoke.make_engine(None)
     engine.warm()
     b = smoke.BUCKETS[-1]
-    with smoke.Recorder() as rec:
+    with checks.Recorder() as rec:
         rids = [engine.submit(smoke.clustered_cloud(b, 100 + i))
                 for i in range(smoke.MICROBATCH)]
         engine.flush()
@@ -178,7 +179,7 @@ def attribute(lib, calls):
         live = m.any(1).nonzero().squeeze(1)
         sub = subset(args, live)
         nb = m.shape[0]
-        nbytes, ops = smoke.work(name, args)
+        nbytes, ops = checks.work(name, args)
         bms, by = smoke.bound_ms(nbytes, ops)
         checks.hold_result(name, args, launch(lib, name, args),
                            checks.runners(name, args)[1]())
@@ -250,7 +251,7 @@ def compare(lib_this, lib_other, calls, run: str):
             lib = lib_this if which == "this" else lib_other
             turns.append((which, smoke.median_ms(
                 lambda: launch(lib, name, args), reps=20)))
-        nbytes, ops = smoke.work(name, args)
+        nbytes, ops = checks.work(name, args)
         bms, by = smoke.bound_ms(nbytes, ops)
         this = [t for w, t in turns if w == "this"]
         other = [t for w, t in turns if w == "other"]

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-std=c++17", "-O3", ARCH, "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> argtypes; every launcher returns a cudaError_t as int.
+# name -> argtypes; every entry returns a cudaError_t as int.
 SIGNATURES = {
     "fc_fps_warp_blocks": [_P, _P, _P, _I, _I, _I, _P],
     "fc_fps_cta_blocks": [_P, _P, _P, _I, _I, _I, _P],
@@ -42,6 +42,22 @@ SIGNATURES = {
     "fc_gather_blocks": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fc_scatter_add_blocks": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fc_fractal_level_blocks": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # Query twins of the launchers: the launch geometry of given shapes
+    # (shape ints, then an int[6] out), without a launch; a kernel
+    # variant's attributes (variant, threads, smem, int[5] out); and the
+    # card's limits (int[5] out).
+    "fc_fps_warp_geometry": [_I, _I, _I, _P],
+    "fc_fps_cta_geometry": [_I, _I, _I, _P],
+    "fc_fps_wide_geometry": [_I, _I, _I, _P],
+    "fc_ball_query_geometry": [_I, _I, _I, _I, _P],
+    "fc_knn_geometry": [_I, _I, _I, _I, _P],
+    "fc_gather_geometry": [_I, _I, _I, _I, _I, _P],
+    "fc_scatter_add_geometry": [_I, _I, _I, _I, _P],
+    "fc_fractal_level_geometry": [_I, _I, _P],
+    **{f"fc_{family}_attributes": [_I, _I, _I, _P]
+       for family in ("fps_warp", "fps_cta", "fps_wide", "ball_query", "knn",
+                      "gather", "scatter_add", "fractal_level")},
+    "fc_device_limits": [_P],
 }
 
 _lib = None

@@ -60,9 +60,22 @@ __global__ void __launch_bounds__(fc::TOPK_THREADS)
 }
 
 template <int C>
-cudaError_t launch(const fc::TopkArgs& a, int threads, size_t smem,
+cudaError_t launch(const fc::TopkArgs& a, const fc::Geometry& g,
                    cudaStream_t s) {
-  return fc::topk_launch(ball_query_kernel<C>, a, threads, smem, s);
+  return fc::topk_launch(ball_query_kernel<C>, a, g, s);
+}
+
+// The kernel of a variant (log2 of its list length), nullptr for none.
+const void* kernel_of(int variant) {
+  switch (variant) {
+    case 0: return reinterpret_cast<const void*>(&ball_query_kernel<1>);
+    case 1: return reinterpret_cast<const void*>(&ball_query_kernel<2>);
+    case 2: return reinterpret_cast<const void*>(&ball_query_kernel<4>);
+    case 3: return reinterpret_cast<const void*>(&ball_query_kernel<8>);
+    case 4: return reinterpret_cast<const void*>(&ball_query_kernel<16>);
+    case 5: return reinterpret_cast<const void*>(&ball_query_kernel<32>);
+    default: return nullptr;
+  }
 }
 
 }  // namespace
@@ -72,19 +85,40 @@ extern "C" int fc_ball_query_blocks(const float* centers, const uint8_t* cmask,
                                     int32_t* idx, float* d2, int32_t* cnt,
                                     int nb, int kc, int w, int num, float r2,
                                     void* stream) {
-  if (nb == 0 || kc == 0) return 0;
-  if (w < 1 || num < 0) return (int)cudaErrorInvalidValue;
   fc::TopkArgs a{centers, cmask, window, wmask, idx, d2, cnt, nb, kc, w, num,
                  r2};
-  int threads;
-  const size_t smem = fc::topk_shape(a, &threads);
+  fc::Geometry g;
+  const cudaError_t e = fc::topk_geometry(a, &g);
+  if (e != cudaSuccess || g.variant < 0) return (int)e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (fc::topk_cap(num)) {
-    case 1: return (int)launch<1>(a, threads, smem, s);
-    case 2: return (int)launch<2>(a, threads, smem, s);
-    case 4: return (int)launch<4>(a, threads, smem, s);
-    case 8: return (int)launch<8>(a, threads, smem, s);
-    case 16: return (int)launch<16>(a, threads, smem, s);
-    default: return (int)launch<32>(a, threads, smem, s);
+  switch (g.variant) {
+    case 0: return (int)launch<1>(a, g, s);
+    case 1: return (int)launch<2>(a, g, s);
+    case 2: return (int)launch<4>(a, g, s);
+    case 3: return (int)launch<8>(a, g, s);
+    case 4: return (int)launch<16>(a, g, s);
+    default: return (int)launch<32>(a, g, s);
   }
+}
+
+// fc_ball_query_blocks's geometry for these shapes, without a launch.
+extern "C" int fc_ball_query_geometry(int nb, int kc, int w, int num,
+                                      int* out) {
+  fc::TopkArgs a{};
+  a.nb = nb;
+  a.nq = kc;
+  a.w = w;
+  a.num = num;
+  fc::Geometry g;
+  const cudaError_t e = fc::topk_geometry(a, &g);
+  fc::write_geometry(g, out);
+  return (int)e;
+}
+
+// Attributes of a variant (log2 of its list length) at that launch.
+extern "C" int fc_ball_query_attributes(int variant, int threads, int smem,
+                                        int* out) {
+  const void* fn = kernel_of(variant);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)fc::func_attributes(fn, threads, smem, out);
 }

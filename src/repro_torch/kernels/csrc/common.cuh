@@ -44,4 +44,61 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   }
 }
 
+// Launch geometry of one kernel call: the launch entry computes it, and
+// the entry's query twin returns it without launching (variant -1: the
+// shapes need no launch).
+struct Geometry {
+  int variant = -1;
+  int grid[3] = {0, 0, 0};
+  int threads = 0;
+  int smem = 0;  // dynamic shared memory, bytes
+};
+
+// out[0..6) = variant, grid x, y, z, threads, dynamic shared memory.
+inline void write_geometry(const Geometry& g, int* out) {
+  out[0] = g.variant;
+  out[1] = g.grid[0];
+  out[2] = g.grid[1];
+  out[3] = g.grid[2];
+  out[4] = g.threads;
+  out[5] = g.smem;
+}
+
+// cudaFuncGetAttributes of kernel `fn`, and how many CTAs of `threads`
+// threads and `smem` dynamic bytes fit an SM.  out[0..5) = registers a
+// thread, local bytes a thread, static shared memory, the function's most
+// threads a block, CTAs an SM (0 where the launch would be refused).
+// Raises the dynamic limit above 48 KB as the launch entries do.
+inline cudaError_t func_attributes(const void* fn, int threads, int smem,
+                                   int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return e;
+  int dev = 0, optin = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  int ctas = 0;
+  const bool fits = threads > 0 && threads <= a.maxThreadsPerBlock &&
+                    (long long)smem + (long long)a.sharedSizeBytes <= optin;
+  if (fits) {
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+      if (e != cudaSuccess) return e;
+    }
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, threads,
+                                                      (size_t)smem);
+    if (e != cudaSuccess) return e;
+  }
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = ctas;
+  return cudaSuccess;
+}
+
 }  // namespace fc

@@ -296,67 +296,175 @@ __global__ void __launch_bounds__(1024)
 
 template <int PPT>
 cudaError_t launch(const float* coords, const uint8_t* mask, int32_t* idx,
-                   int nb, int bs, int k, int threads, cudaStream_t stream) {
-  fps_kernel<PPT><<<nb, threads, 0, stream>>>(coords, mask, idx, bs, k);
+                   int bs, int k, const fc::Geometry& g,
+                   cudaStream_t stream) {
+  fps_kernel<PPT><<<g.grid[0], g.threads, 0, stream>>>(coords, mask, idx, bs,
+                                                       k);
   return cudaGetLastError();
 }
 
 template <int S>
 cudaError_t launch_warp(const float* coords, const uint8_t* mask,
-                        int32_t* idx, int nb, int bs, int k,
+                        int32_t* idx, int bs, int k, const fc::Geometry& g,
                         cudaStream_t stream) {
-  fps_warp_kernel<S><<<nb, 32, 0, stream>>>(coords, mask, idx, bs, k);
+  fps_warp_kernel<S><<<g.grid[0], g.threads, 0, stream>>>(coords, mask, idx,
+                                                          bs, k);
   return cudaGetLastError();
+}
+
+// The launch of one call of each variant, one block a CTA.  Each refuses
+// widths it cannot take.
+
+// Blocks of at most 512 lanes, one warp each; the variant is log2 of the
+// slots a lane (S = 1, 2, 4, 8, 16).
+cudaError_t fps_warp_geometry(int nb, int bs, int k, fc::Geometry* g) {
+  if (nb == 0 || k == 0) return cudaSuccess;
+  if (bs < 1 || bs > 32 * kWarpSlots || k < 0) return cudaErrorInvalidValue;
+  const int slots = (bs + 31) / 32;
+  int v = 0;
+  while ((1 << v) < slots) ++v;
+  g->variant = v;
+  g->threads = 32;
+  g->grid[0] = nb;
+  g->grid[1] = g->grid[2] = 1;
+  return cudaSuccess;
+}
+
+// Blocks of at most 8192 lanes, one CTA each, min-d^2 in registers: one,
+// two or eight points a thread (variants 0, 1, 2).  Four would spill:
+// ptxas keeps that variant at 32 registers so that two CTAs of 1024
+// threads fit an SM.
+cudaError_t fps_cta_geometry(int nb, int bs, int k, fc::Geometry* g) {
+  if (nb == 0 || k == 0) return cudaSuccess;
+  if (bs < 1 || bs > 8 * 1024 || k < 0) return cudaErrorInvalidValue;
+  const int ppt = bs <= 1024 ? 1 : bs <= 2048 ? 2 : 8;
+  g->variant = ppt == 1 ? 0 : ppt == 2 ? 1 : 2;
+  g->threads = ((bs + ppt - 1) / ppt + 31) / 32 * 32;
+  g->grid[0] = nb;
+  g->grid[1] = g->grid[2] = 1;
+  return cudaSuccess;
+}
+
+// Blocks of any width, one CTA of 1024 threads each (variant 0).
+cudaError_t fps_wide_geometry(int nb, int bs, int k, fc::Geometry* g) {
+  if (nb == 0 || k == 0) return cudaSuccess;
+  if (bs < 1 || k < 0) return cudaErrorInvalidValue;
+  g->variant = 0;
+  g->threads = 1024;
+  g->grid[0] = nb;
+  g->grid[1] = g->grid[2] = 1;
+  return cudaSuccess;
+}
+
+const void* warp_kernel_of(int variant) {
+  switch (variant) {
+    case 0: return reinterpret_cast<const void*>(&fps_warp_kernel<1>);
+    case 1: return reinterpret_cast<const void*>(&fps_warp_kernel<2>);
+    case 2: return reinterpret_cast<const void*>(&fps_warp_kernel<4>);
+    case 3: return reinterpret_cast<const void*>(&fps_warp_kernel<8>);
+    case 4: return reinterpret_cast<const void*>(&fps_warp_kernel<16>);
+    default: return nullptr;
+  }
+}
+
+const void* cta_kernel_of(int variant) {
+  switch (variant) {
+    case 0: return reinterpret_cast<const void*>(&fps_kernel<1>);
+    case 1: return reinterpret_cast<const void*>(&fps_kernel<2>);
+    case 2: return reinterpret_cast<const void*>(&fps_kernel<8>);
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
 // The three variants, one entry each; the wrapper picks by the block width
-// (repro_torch/kernels/fps.py `variant`).  Each refuses widths it cannot
-// take.
+// (repro_torch/kernels/fps.py `variant`).  Each has a query twin that
+// returns its geometry without a launch, and one that returns a kernel's
+// attributes at that geometry.
 
-// Blocks of at most 512 lanes, one warp each.
 extern "C" int fc_fps_warp_blocks(const float* coords, const uint8_t* mask,
                                   int32_t* idx, int nb, int bs, int k,
                                   void* stream) {
-  if (nb == 0 || k == 0) return 0;
-  if (bs < 1 || bs > 32 * kWarpSlots || k < 0)
-    return (int)cudaErrorInvalidValue;
+  fc::Geometry g;
+  const cudaError_t e = fps_warp_geometry(nb, bs, k, &g);
+  if (e != cudaSuccess || g.variant < 0) return (int)e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int slots = (bs + 31) / 32;
-  if (slots <= 1) return (int)launch_warp<1>(coords, mask, idx, nb, bs, k, s);
-  if (slots <= 2) return (int)launch_warp<2>(coords, mask, idx, nb, bs, k, s);
-  if (slots <= 4) return (int)launch_warp<4>(coords, mask, idx, nb, bs, k, s);
-  if (slots <= 8) return (int)launch_warp<8>(coords, mask, idx, nb, bs, k, s);
-  return (int)launch_warp<16>(coords, mask, idx, nb, bs, k, s);
+  switch (g.variant) {
+    case 0: return (int)launch_warp<1>(coords, mask, idx, bs, k, g, s);
+    case 1: return (int)launch_warp<2>(coords, mask, idx, bs, k, g, s);
+    case 2: return (int)launch_warp<4>(coords, mask, idx, bs, k, g, s);
+    case 3: return (int)launch_warp<8>(coords, mask, idx, bs, k, g, s);
+    default: return (int)launch_warp<16>(coords, mask, idx, bs, k, g, s);
+  }
 }
 
-// Blocks of at most 8192 lanes, one CTA each, min-d^2 in registers.
 extern "C" int fc_fps_cta_blocks(const float* coords, const uint8_t* mask,
                                  int32_t* idx, int nb, int bs, int k,
                                  void* stream) {
-  if (nb == 0 || k == 0) return 0;
-  if (bs < 1 || bs > 8 * 1024 || k < 0) return (int)cudaErrorInvalidValue;
+  fc::Geometry g;
+  const cudaError_t e = fps_cta_geometry(nb, bs, k, &g);
+  if (e != cudaSuccess || g.variant < 0) return (int)e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  // One, two or eight points a thread.  Four would spill: ptxas keeps that
-  // variant at 32 registers so that two CTAs of 1024 threads fit an SM.
-  const int ppt = bs <= 1024 ? 1 : bs <= 2048 ? 2 : 8;
-  const int threads = ((bs + ppt - 1) / ppt + 31) / 32 * 32;
-  cudaError_t err;
-  if (ppt == 1) err = launch<1>(coords, mask, idx, nb, bs, k, threads, s);
-  else if (ppt == 2) err = launch<2>(coords, mask, idx, nb, bs, k, threads, s);
-  else err = launch<8>(coords, mask, idx, nb, bs, k, threads, s);
-  return (int)err;
+  switch (g.variant) {
+    case 0: return (int)launch<1>(coords, mask, idx, bs, k, g, s);
+    case 1: return (int)launch<2>(coords, mask, idx, bs, k, g, s);
+    default: return (int)launch<8>(coords, mask, idx, bs, k, g, s);
+  }
 }
 
-// Blocks of any width, one CTA each; `scratch`: (NB, BS) floats.
+// `scratch`: (NB, BS) floats.
 extern "C" int fc_fps_wide_blocks(const float* coords, const uint8_t* mask,
                                   int32_t* idx, float* scratch, int nb,
                                   int bs, int k, void* stream) {
-  if (nb == 0 || k == 0) return 0;
-  if (bs < 1 || k < 0 || scratch == nullptr)
-    return (int)cudaErrorInvalidValue;
-  fps_wide_kernel<<<nb, 1024, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+  fc::Geometry g;
+  const cudaError_t e = fps_wide_geometry(nb, bs, k, &g);
+  if (e != cudaSuccess || g.variant < 0) return (int)e;
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  fps_wide_kernel<<<g.grid[0], g.threads, 0,
+                    reinterpret_cast<cudaStream_t>(stream)>>>(
       coords, mask, idx, scratch, bs, k);
   return (int)cudaGetLastError();
+}
+
+extern "C" int fc_fps_warp_geometry(int nb, int bs, int k, int* out) {
+  fc::Geometry g;
+  const cudaError_t e = fps_warp_geometry(nb, bs, k, &g);
+  fc::write_geometry(g, out);
+  return (int)e;
+}
+
+extern "C" int fc_fps_cta_geometry(int nb, int bs, int k, int* out) {
+  fc::Geometry g;
+  const cudaError_t e = fps_cta_geometry(nb, bs, k, &g);
+  fc::write_geometry(g, out);
+  return (int)e;
+}
+
+extern "C" int fc_fps_wide_geometry(int nb, int bs, int k, int* out) {
+  fc::Geometry g;
+  const cudaError_t e = fps_wide_geometry(nb, bs, k, &g);
+  fc::write_geometry(g, out);
+  return (int)e;
+}
+
+extern "C" int fc_fps_warp_attributes(int variant, int threads, int smem,
+                                      int* out) {
+  const void* fn = warp_kernel_of(variant);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)fc::func_attributes(fn, threads, smem, out);
+}
+
+extern "C" int fc_fps_cta_attributes(int variant, int threads, int smem,
+                                     int* out) {
+  const void* fn = cta_kernel_of(variant);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)fc::func_attributes(fn, threads, smem, out);
+}
+
+extern "C" int fc_fps_wide_attributes(int variant, int threads, int smem,
+                                      int* out) {
+  if (variant != 0) return (int)cudaErrorInvalidValue;
+  return (int)fc::func_attributes(
+      reinterpret_cast<const void*>(&fps_wide_kernel), threads, smem, out);
 }

@@ -105,6 +105,17 @@ fractal_level_kernel(const float* __restrict__ coords,
   }
 }
 
+// The launch of one call: one warp a block, kLevelWarps blocks a CTA.
+cudaError_t fractal_level_geometry(int nb, int bs, fc::Geometry* g) {
+  if (nb == 0) return cudaSuccess;
+  if (bs < 1) return cudaErrorInvalidValue;
+  g->variant = 0;
+  g->threads = kLevelWarps * 32;
+  g->grid[0] = (nb + kLevelWarps - 1) / kLevelWarps;
+  g->grid[1] = g->grid[2] = 1;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int fc_fractal_level_blocks(const float* coords,
@@ -112,12 +123,29 @@ extern "C" int fc_fractal_level_blocks(const float* coords,
                                        int32_t* side, int32_t* lcnt,
                                        float* stats, int nb, int bs, int da,
                                        int db, void* stream) {
-  if (nb == 0) return 0;
-  if (bs < 1 || da < 0 || da > 2 || db < 0 || db > 2)
-    return (int)cudaErrorInvalidValue;
-  fractal_level_kernel<<<(nb + kLevelWarps - 1) / kLevelWarps,
-                         kLevelWarps * 32, 0,
+  fc::Geometry g;
+  const cudaError_t e = fractal_level_geometry(nb, bs, &g);
+  if (e != cudaSuccess || g.variant < 0) return (int)e;
+  if (da < 0 || da > 2 || db < 0 || db > 2) return (int)cudaErrorInvalidValue;
+  fractal_level_kernel<<<g.grid[0], g.threads, 0,
                          reinterpret_cast<cudaStream_t>(stream)>>>(
       coords, mask, mid, side, lcnt, stats, nb, bs, da, db);
   return (int)cudaGetLastError();
+}
+
+// fc_fractal_level_blocks's geometry for these shapes, without a launch.
+extern "C" int fc_fractal_level_geometry(int nb, int bs, int* out) {
+  fc::Geometry g;
+  const cudaError_t e = fractal_level_geometry(nb, bs, &g);
+  fc::write_geometry(g, out);
+  return (int)e;
+}
+
+// Attributes of the one variant (0) at that launch.
+extern "C" int fc_fractal_level_attributes(int variant, int threads,
+                                           int smem, int* out) {
+  if (variant != 0) return (int)cudaErrorInvalidValue;
+  return (int)fc::func_attributes(
+      reinterpret_cast<const void*>(&fractal_level_kernel), threads, smem,
+      out);
 }

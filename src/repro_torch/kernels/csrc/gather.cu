@@ -41,29 +41,62 @@ __global__ void gather_kernel(const V* __restrict__ feats,
   }
 }
 
+// The launch of one call: float4 chunks (variant 0) where C is a multiple of
+// 4 and both buffers are 16-byte aligned, else floats (variant 1); 256
+// threads, a grid-stride loop over at most 64 CTAs an SM.
+cudaError_t gather_geometry(int nb, int w, int c, int m, bool aligned,
+                            fc::Geometry* g) {
+  if (nb == 0 || m == 0 || c == 0) return cudaSuccess;
+  if (w < 1) return cudaErrorInvalidValue;
+  const long long rows = (long long)nb * m;
+  const bool vec = (c % 4 == 0) && aligned;
+  const int cv = vec ? c / 4 : c;
+  g->variant = vec ? 0 : 1;
+  g->threads = 256;
+  const long long want = (rows * cv + g->threads - 1) / g->threads;
+  g->grid[0] = (int)(want < 132LL * 64 ? want : 132LL * 64);
+  g->grid[1] = g->grid[2] = 1;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int fc_gather_blocks(const float* feats, const int32_t* idx,
                                 float* out, int nb, int w, int c, int m,
                                 void* stream) {
-  if (nb == 0 || m == 0 || c == 0) return 0;
-  if (w < 1) return (int)cudaErrorInvalidValue;
+  const bool aligned = (reinterpret_cast<uintptr_t>(feats) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  fc::Geometry g;
+  cudaError_t e = gather_geometry(nb, w, c, m, aligned, &g);
+  if (e != cudaSuccess || g.variant < 0) return (int)e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const long long rows = (long long)nb * m;
-  const bool vec = (c % 4 == 0) &&
-                   (reinterpret_cast<uintptr_t>(feats) % 16 == 0) &&
-                   (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  const int cv = vec ? c / 4 : c;
-  const int threads = 256;
-  long long want = (rows * cv + threads - 1) / threads;
-  int blocks = (int)(want < 132LL * 64 ? want : 132LL * 64);
-  if (vec) {
-    gather_kernel<float4><<<blocks, threads, 0, s>>>(
+  if (g.variant == 0) {
+    gather_kernel<float4><<<g.grid[0], g.threads, 0, s>>>(
         reinterpret_cast<const float4*>(feats), idx,
-        reinterpret_cast<float4*>(out), rows, m, w, cv);
+        reinterpret_cast<float4*>(out), rows, m, w, c / 4);
   } else {
-    gather_kernel<float><<<blocks, threads, 0, s>>>(feats, idx, out, rows, m,
-                                                    w, cv);
+    gather_kernel<float><<<g.grid[0], g.threads, 0, s>>>(feats, idx, out,
+                                                         rows, m, w, c);
   }
   return (int)cudaGetLastError();
+}
+
+// fc_gather_blocks's geometry for these shapes, without a launch.
+extern "C" int fc_gather_geometry(int nb, int w, int c, int m, int aligned,
+                                  int* out) {
+  fc::Geometry g;
+  const cudaError_t e = gather_geometry(nb, w, c, m, aligned != 0, &g);
+  fc::write_geometry(g, out);
+  return (int)e;
+}
+
+// Attributes of variant 0 (float4) or 1 (float) at that launch.
+extern "C" int fc_gather_attributes(int variant, int threads, int smem,
+                                    int* out) {
+  if (variant < 0 || variant > 1) return (int)cudaErrorInvalidValue;
+  const void* fn =
+      variant == 0 ? reinterpret_cast<const void*>(&gather_kernel<float4>)
+                   : reinterpret_cast<const void*>(&gather_kernel<float>);
+  return (int)fc::func_attributes(fn, threads, smem, out);
 }

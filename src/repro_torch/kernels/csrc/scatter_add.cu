@@ -85,38 +85,73 @@ __global__ void scatter_add_kernel(const float* __restrict__ g,
       ob[(long long)r * c + cl] = acc[(size_t)r * tile + cl];
 }
 
+// The launch of one call: one CTA per (block, channel tile), the tile as
+// wide as fits W x tile floats beside the index chunk in the device's
+// opt-in shared memory; *tile and *chunk are the kernel's arguments.
+cudaError_t scatter_add_geometry(int nb, int m, int c, int w, fc::Geometry* g,
+                                 int* tile, int* chunk) {
+  if (nb == 0 || c == 0 || w == 0) return cudaSuccess;
+  if (w < 0 || m < 0 || c < 0) return cudaErrorInvalidValue;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  const int rows = m < kIdxChunk ? (m > 0 ? m : 1) : kIdxChunk;
+  *chunk = (rows + kAhead - 1) / kAhead * kAhead;
+  const long long room = (long long)optin - (long long)*chunk * 4;
+  long long fit = room / (4LL * w);
+  if (fit < 1) return cudaErrorInvalidValue;   // window too tall
+  *tile = (int)(fit < kMaxTile ? fit : kMaxTile);
+  if (*tile > c) *tile = c;
+  if (*tile < c && *tile >= 32) *tile -= *tile % 32;     // whole warps
+  g->variant = 0;
+  g->threads = *tile < 32 ? 32 : ((*tile + 31) / 32) * 32;
+  g->smem = (int)((size_t)w * *tile * 4 + (size_t)*chunk * 4);
+  g->grid[0] = nb;
+  g->grid[1] = (c + *tile - 1) / *tile;
+  g->grid[2] = 1;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int fc_scatter_add_blocks(const float* g, const int32_t* idx,
                                      float* out, int nb, int m, int c, int w,
                                      void* stream) {
-  if (nb == 0 || c == 0 || w == 0) return 0;
-  if (w < 0 || m < 0 || c < 0) return (int)cudaErrorInvalidValue;
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e != cudaSuccess) return (int)e;
-  const int rows = m < kIdxChunk ? (m > 0 ? m : 1) : kIdxChunk;
-  const int chunk = (rows + kAhead - 1) / kAhead * kAhead;
-  const long long room = (long long)optin - (long long)chunk * 4;
-  long long fit = room / (4LL * w);
-  if (fit < 1) return (int)cudaErrorInvalidValue;   // window too tall
-  int tile = (int)(fit < kMaxTile ? fit : kMaxTile);
-  if (tile > c) tile = c;
-  if (tile < c && tile >= 32) tile -= tile % 32;     // whole warps
-  const int threads = tile < 32 ? 32 : ((tile + 31) / 32) * 32;
-  const size_t smem = (size_t)w * tile * 4 + (size_t)chunk * 4;
-  if (smem > 48 * 1024) {
+  fc::Geometry geo;
+  int tile = 0, chunk = 0;
+  cudaError_t e = scatter_add_geometry(nb, m, c, w, &geo, &tile, &chunk);
+  if (e != cudaSuccess || geo.variant < 0) return (int)e;
+  if (geo.smem > 48 * 1024) {
     e = cudaFuncSetAttribute(scatter_add_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             geo.smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((unsigned)nb, (unsigned)((c + tile - 1) / tile));
-  scatter_add_kernel<<<grid, threads, smem,
+  dim3 grid((unsigned)geo.grid[0], (unsigned)geo.grid[1]);
+  scatter_add_kernel<<<grid, geo.threads, (size_t)geo.smem,
                        reinterpret_cast<cudaStream_t>(stream)>>>(
       g, idx, out, m, c, w, tile, chunk);
   return (int)cudaGetLastError();
+}
+
+// fc_scatter_add_blocks's geometry for these shapes, without a launch.
+extern "C" int fc_scatter_add_geometry(int nb, int m, int c, int w,
+                                       int* out) {
+  fc::Geometry geo;
+  int tile = 0, chunk = 0;
+  const cudaError_t e = scatter_add_geometry(nb, m, c, w, &geo, &tile,
+                                             &chunk);
+  fc::write_geometry(geo, out);
+  return (int)e;
+}
+
+// Attributes of the one variant (0) at that launch.
+extern "C" int fc_scatter_add_attributes(int variant, int threads, int smem,
+                                         int* out) {
+  if (variant != 0) return (int)cudaErrorInvalidValue;
+  return (int)fc::func_attributes(
+      reinterpret_cast<const void*>(&scatter_add_kernel), threads, smem, out);
 }

@@ -298,17 +298,33 @@ __device__ inline void topk_rows(const TopkArgs& a) {
   }
 }
 
-// Launch a top-k kernel, one leaf block a CTA, with the geometry
-// topk_shape gave.
+// The launch of one call (nb, nq, w, num set): one leaf block a CTA, the
+// threads and dynamic shared memory of topk_shape; the variant is
+// log2(C), the kernel's list length (topk_cap).
+inline cudaError_t topk_geometry(TopkArgs& a, Geometry* g) {
+  if (a.nb == 0 || a.nq == 0) return cudaSuccess;
+  if (a.w < 1 || a.num < 0) return cudaErrorInvalidValue;
+  int threads;
+  g->smem = (int)topk_shape(a, &threads);
+  g->threads = threads;
+  int v = 0;
+  while ((1 << v) < topk_cap(a.num)) ++v;
+  g->variant = v;
+  g->grid[0] = a.nb;
+  g->grid[1] = g->grid[2] = 1;
+  return cudaSuccess;
+}
+
+// Launch a top-k kernel with the geometry topk_geometry gave.
 template <typename Kernel>
-cudaError_t topk_launch(Kernel kernel, const TopkArgs& a, int threads,
-                        size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
+cudaError_t topk_launch(Kernel kernel, const TopkArgs& a, const Geometry& g,
+                        cudaStream_t stream) {
+  if (g.smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
     if (e != cudaSuccess) return e;
   }
-  kernel<<<a.nb, threads, smem, stream>>>(a);
+  kernel<<<g.grid[0], g.threads, (size_t)g.smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -65,7 +65,7 @@ def save(ckpt_dir: str, step: int, tree, extra: dict | None = None,
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     # Manifest times are read by other processes (restore tooling, age
     # based clean-up), so the wall clock is the right domain.
-    manifest = {"step": step, "time": time.time(),
+    manifest = {"step": step, "time": time.time(),  # repolint: disable=CLK003
                 "extra": extra or {}, "keys": sorted(arrays)}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)

@@ -28,6 +28,15 @@ RATE, K_OUT, RADIUS, NUM = 0.25, 128, 0.5, 8
 W, WC, C = 2 * TH, 24, 5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def clouds(batch=2):
     rng = np.random.default_rng(7)
     pts = np.zeros((batch, N, 3), np.float32)

@@ -28,6 +28,15 @@ KEY = jax.random.PRNGKey(0)
 INT8_EF_TOL = 1e-7
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def edge_values() -> np.ndarray:
     """Zeros, subnormals, values near the float32 limits and exact ties
     between two bf16 neighbours (both parities), then seeded normals."""

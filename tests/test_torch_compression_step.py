@@ -50,6 +50,15 @@ SEED = 3
 OPT = dict(lr=3e-3, warmup=0, total_steps=10, weight_decay=0.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def flat_paths(tree) -> list:
     return ["/".join(str(getattr(p, "key", getattr(p, "idx", p)))
                      for p in path)

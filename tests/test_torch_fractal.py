@@ -22,6 +22,15 @@ jax.config.update("jax_platform_name", "cpu")
 FIELDS = [f for f in fr.FractalPartition.__dataclass_fields__]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_cloud(seed, n, kind="clusters"):
     rng = np.random.default_rng(seed)
     if kind == "clusters":

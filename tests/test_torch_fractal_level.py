@@ -30,6 +30,15 @@ LEVEL_SHAPES = ODD_SHAPES + [(2, 32), (2, 256), (2, 513), (1, 2048)]
 LADDER = [(0, False), (1, False), (0, True)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def blocks(seed, nb, bs, empty_blocks=0, all_invalid=False):
     rng = np.random.default_rng(seed)
     coords = rng.normal(0, 1, (nb, bs, 3)).astype(np.float32)

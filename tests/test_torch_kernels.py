@@ -35,6 +35,15 @@ TOL = 1e-5
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def blocks(seed, nb, bs, empty_blocks=0, all_invalid=False):
     rng = np.random.default_rng(seed)
     coords = rng.normal(0, 1, (nb, bs, 3)).astype(np.float32)

@@ -38,6 +38,15 @@ TINY = pnn_cell.PNNShape("tiny", 512, 2, 32)
 REF_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("kind", ["serve", "train"])
 @pytest.mark.parametrize("shape", sorted(jcell.PNN_SHAPES))
 @pytest.mark.parametrize("variant", sorted(jcell.PNN_VARIANTS))

@@ -26,6 +26,15 @@ jax.config.update("jax_platform_name", "cpu")
 VARIANTS = ["pointnet2", "pointnext", "pointvector"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def configs(variant, task):
     n, th = (256, 32) if task == "cls" else (384, 64)
     kw = dict(variant=variant, task=task, n_points=n, point_ops="bppo",

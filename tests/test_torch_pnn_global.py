@@ -28,6 +28,15 @@ jax.config.update("jax_platform_name", "cpu")
 TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("preset,n", [("pointnext_cls", 160),
                                       ("pointvector_seg", 192)])
 def test_global_apply_matches_jax(preset, n):

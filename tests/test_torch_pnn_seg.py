@@ -6,9 +6,18 @@ and gather kernels' plain versions.
 """
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from test_torch_pnn import VARIANTS, hold_apply_against_jax  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("variant", VARIANTS)

@@ -26,6 +26,15 @@ jax.config.update("jax_platform_name", "cpu")
 TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def clouds(seed=0, b=2, n=300):
     rng = np.random.default_rng(seed)
     pts = rng.normal(0, 1, (b, n, 3)).astype(np.float32)

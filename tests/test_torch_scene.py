@@ -23,6 +23,15 @@ from repro_torch.models import pnn  # noqa: E402
 jax.config.update("jax_platform_name", "cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def hold_plans(got, want):
     assert got.n == want.n and got.tile_points == want.tile_points
     assert got.halo == want.halo and got.strategy == want.strategy

@@ -6,13 +6,22 @@ multistage case, halo radius 0.3, at most 128 halo points a tile.
 """
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro_torch import scene  # noqa: E402
 from test_torch_scene_seg import hold_scene_against_jax  # noqa: E402
 
 KW = dict(tile_points=512, halo=0.3, max_halo_points=128, th=64,
           microbatch=2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_multistage_halo_scene_matches_jax():

@@ -29,6 +29,15 @@ jax.config.update("jax_platform_name", "cpu")
 TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def hold_scene_against_jax(n, seed, kw, stages, fp_widths):
     """``stages``: (rate, radius, nsample, widths) tuples, made into each
     package's ``SAStage``."""

@@ -23,6 +23,15 @@ from repro_torch.core import fractal  # noqa: E402
 jax.config.update("jax_platform_name", "cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class FakeClock:
     def __init__(self, t=0.0):
         self.t = t

@@ -24,6 +24,15 @@ KW = dict(buckets=(128, 256), microbatch=2, max_wait_s=1.0,
           variant="pointnet2", task="seg", th=64, point_ops="global")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_global_engine_matches_jax_engine():
     jeng = jserve.ServeEngine(jserve.ServeConfig(impl="xla", **KW), seed=5)
     params = convert.from_jax(jax.tree.map(np.asarray, jeng.params),

@@ -38,6 +38,15 @@ OPT_TOL = 1e-6
 # Optimizer.
 # ---------------------------------------------------------------------------
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: CPU results must not depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_adamw_matches_jax_over_three_steps():
     """Warmup, cosine, clipping (the first gradient is far above the clip
     norm) and decay on matrices only, on the same gradients."""
