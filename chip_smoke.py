@@ -84,7 +84,25 @@ of which raises on failure:
    points on the card against the CPU;
 13. the first training step's decompressed gradients of each codec, on
    the card against the CPU (one 4096-point cloud), and the codec on the
-   card against the CPU on the same gradients, bit for bit.
+   card against the CPU on the same gradients, bit for bit;
+14. LM serving (``repro_torch.lm``, no hand-written kernel: the LM path of
+   the reference has no TPU kernel): each of the six attention-family
+   architectures at its published widths (``config()``), one repetition
+   of its block pattern deep (seamless: one encoder layer), in float32
+   with seeded random weights, prefill of a 2 x 32 prompt and 4
+   teacher-forced decode steps on the card against the CPU by the serving
+   rule; gemma2-2b so again at a 1 x 4200 prompt (the chunked attention,
+   a wrapped 4096-slot rolling cache); smollm-135m at full config in
+   bfloat16, card against CPU, within twice the CPU's own bfloat16 vs
+   float32 gap; then smollm-135m (batch 8, prompt 512, 64 new tokens) and
+   gemma2-2b (batch 1, prompt 8192, 32 new tokens: the chunked attention
+   in every layer, both softcaps, the 4096-slot rolling caches past their
+   wrap) at full config (bfloat16 activations, float32 weights, full
+   depth) through the launcher's greedy loop under the one-card mesh's
+   logical rules: prefill time, each decode step, tokens/s, peak device
+   memory, finite logits, and one more decode step under
+   ``torch.profiler`` (device ops, device busy time; idle share against
+   the unprofiled median step).
 
 It then prints a ``{"kernels": [...]}`` line and, last, the device line.
 Without a CUDA card it exits non-zero and prints no result.
@@ -142,6 +160,22 @@ TRAINING = SERVING + ("scatter_add_blocks",)
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name.rsplit('_', 1)[0]}.cu"
            for name in REPLACES}
 LEVEL_DIMS_TIMED = (0, 1)   # the (da, db) pair whose leaf-block call is timed
+# Phase 14: the LM architectures held card vs CPU in float32 (published
+# widths, one repetition of the pattern): (arch, batch, prompt, decode
+# steps).  gemma2-2b also at a prompt past the attention's flash threshold
+# (4096 keys): the chunked attention in both layers, and a 4096-slot
+# rolling cache that prefill fills past its size and decode wraps again.
+LM_ARCHS = ("smollm-135m", "minitron-4b", "gemma2-2b", "gemma3-12b",
+            "chameleon-34b", "seamless-m4t-medium")
+LM_HOLD = (tuple((arch, 2, 32, 4) for arch in LM_ARCHS)
+           + (("gemma2-2b", 1, 4200, 4),))
+# smollm-135m at full config in bfloat16, card vs CPU: (batch, prompt,
+# steps).  The card's bfloat16 logits may differ from the CPU's by at most
+# LM_BF16_SLACK times the relative L2 gap between the CPU's bfloat16 and
+# float32 logits (the dtype's own rounding on the same weights).
+LM_HOLD_BF16 = ("smollm-135m", 2, 32, 4)
+LM_BF16_SLACK = 2.0
+LM_SERVE = (("smollm-135m", 8, 512, 64), ("gemma2-2b", 1, 8192, 32))
 
 
 def log(msg=""):
@@ -443,9 +477,9 @@ def phase_serve(engine):
     return clouds, results, launches
 
 
-def hold_logits(pairs, title: str) -> None:
+def hold_logits(pairs, title: str, units=("clouds", "points")) -> None:
     """Card logits against CPU logits, (got, want) per cloud: |difference|
-    <= LOGIT_TOL on >= LOGIT_SHARE of the points, or raise."""
+    <= LOGIT_TOL on >= LOGIT_SHARE of the points (rows), or raise."""
     total = over = 0
     worst = 0.0
     for got, want in pairs:
@@ -457,7 +491,8 @@ def hold_logits(pairs, title: str) -> None:
         over += int((diff > LOGIT_TOL).sum())
         worst = max(worst, float(diff.max()))
     share = 1.0 - over / total
-    log(f"{title}, card vs CPU: {len(pairs)} clouds, {total} points, "
+    log(f"{title}, card vs CPU: {len(pairs)} {units[0]}, {total} "
+        f"{units[1]}, "
         f"{over} over {LOGIT_TOL} (share within {share:.6f}), max |d| "
         f"{worst:.3g}")
     if share < LOGIT_SHARE:
@@ -580,6 +615,7 @@ def report_profile(prof, wall_us: float, title: str, top: int = 8):
         f"{launches} device ops, ported kernels {mine / 1e3:.2f} ms")
     for us, count, key in dev[:top]:
         log(f"    {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+    return {"busy_us": busy, "ops": launches, "idle": 1 - busy / wall_us}
 
 
 # ---------------------------------------------------------------------------
@@ -1040,6 +1076,213 @@ def phase_cell_parity():
         hold_logits(list(zip(got, want)), f"{variant} {CELL_PARITY_N}")
 
 
+# ---------------------------------------------------------------------------
+# LM serving.
+# ---------------------------------------------------------------------------
+
+def lm_hold_config(arch: str):
+    """``config()`` at float32, one repetition of the pattern deep (an
+    encoder of one layer)."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.lm_config(arch, dtype="float32")
+    return dataclasses.replace(cfg, n_layers=len(cfg.pattern),
+                               encoder_layers=min(cfg.encoder_layers, 1))
+
+
+def lm_prompt(cfg, batch: int, prompt: int, seed: int) -> dict:
+    """A prefill's keyword inputs as host tensors, made with numpy."""
+    import torch
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt)))
+    if not cfg.encoder_layers:
+        return {"tokens": toks}
+    frames = (rng.standard_normal((batch, prompt, cfg.d_model)) * 0.1)
+    return {"dec_tokens": toks,
+            "frames": torch.from_numpy(frames.astype(np.float32))}
+
+
+def lm_teacher_forced(runs, kw: dict, prompt: int, steps: int) -> list:
+    """Prefill of ``kw`` and ``steps`` decode steps for each (model, cfg)
+    of ``runs``, each on its model's device; the first run's greedy token
+    feeds every run.  Returns per run the float32 logits (B, V) of the
+    prefill and of each step."""
+    import torch
+    from repro_torch.lm import model as M
+    state, logits = [], [[] for _ in runs]
+    for j, (model, cfg) in enumerate(runs):
+        dev = next(model.parameters()).device
+        last, cache = M.prefill(model, cfg, max_len=prompt + steps,
+                                **{k: v.to(dev) for k, v in kw.items()})
+        state.append([last, cache])
+        logits[j].append(last[:, 0].float().cpu().numpy())
+    for i in range(steps):
+        nxt = torch.argmax(state[0][0], -1).cpu()
+        for j, (model, cfg) in enumerate(runs):
+            last, cache = state[j]
+            state[j] = M.decode_step(model, cfg, nxt.to(last.device), cache,
+                                     prompt + i)
+            logits[j].append(state[j][0][:, 0].float().cpu().numpy())
+    return logits
+
+
+def phase_lm_hold():
+    """Each architecture's prefill and teacher-forced decode logits, card
+    against CPU on the same weights, by the serving rule (float32); then
+    smollm-135m at full config in bfloat16."""
+    import copy
+    import torch
+    from repro_torch.lm import model as M
+    for arch, batch, prompt, steps in LM_HOLD:
+        t0 = time.monotonic()
+        cfg = lm_hold_config(arch)
+        want_model, _ = M.init(cfg, torch.Generator().manual_seed(SEED),
+                               device="cpu")
+        got_model = copy.deepcopy(want_model).cuda()
+        want, got = lm_teacher_forced(
+            [(want_model, cfg), (got_model, cfg)],
+            lm_prompt(cfg, batch, prompt, SEED + 1), prompt, steps)
+        n_params = sum(p.numel() for p in want_model.parameters())
+        hold_logits(list(zip(got, want)),
+                    f"LM {arch} (d_model {cfg.d_model}, {cfg.n_layers} "
+                    f"layers {cfg.pattern}, {n_params / 1e9:.2f}B params, "
+                    f"float32; prefill {batch}x{prompt} + {steps} decode "
+                    f"steps, {time.monotonic() - t0:.1f} s)",
+                    units=("logit sets", "rows"))
+        del want_model, got_model
+        torch.cuda.empty_cache()
+    phase_lm_hold_bf16()
+
+
+def rel_l2(got, want) -> float:
+    """The largest relative L2 gap of a row (one sequence's logits)."""
+    return float((np.linalg.norm(got - want, axis=-1)
+                  / np.linalg.norm(want, axis=-1)).max())
+
+
+def phase_lm_hold_bf16():
+    """smollm-135m at full config (published widths, full depth) in
+    bfloat16 activations: the card against the CPU on the same weights,
+    held to LM_BF16_SLACK times the CPU's own bfloat16-vs-float32 gap."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.lm import model as M
+    arch, batch, prompt, steps = LM_HOLD_BF16
+    t0 = time.monotonic()
+    cfg = configs.lm_config(arch)
+    if cfg.dtype != "bfloat16":
+        raise AssertionError(f"{arch}: config() serves in {cfg.dtype}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cpu, _ = M.init(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    card = copy.deepcopy(cpu).cuda()
+    cpu16, card16, cpu32 = lm_teacher_forced(
+        [(cpu, cfg), (card, cfg), (cpu, cfg32)],
+        lm_prompt(cfg, batch, prompt, SEED + 1), prompt, steps)
+    card_gap = max(rel_l2(g, w) for g, w in zip(card16, cpu16))
+    dtype_gap = max(rel_l2(g, w) for g, w in zip(cpu16, cpu32))
+    card_vs_32 = max(rel_l2(g, w) for g, w in zip(card16, cpu32))
+    worst = max(float(np.abs(g - w).max()) for g, w in zip(card16, cpu16))
+    finite = all(np.isfinite(g).all() for g in card16)
+    log(f"LM {arch} bfloat16 (full config, {cfg.n_layers} layers; prefill "
+        f"{batch}x{prompt} + {steps} decode steps, "
+        f"{time.monotonic() - t0:.1f} s), card vs CPU: relative L2 "
+        f"{card_gap:.4g} (max |d| {worst:.4g}); the CPU's bfloat16 vs "
+        f"float32 {dtype_gap:.4g}, the card's {card_vs_32:.4g}; limit "
+        f"{LM_BF16_SLACK} x {dtype_gap:.4g}")
+    if not finite or not card_gap <= LM_BF16_SLACK * dtype_gap:
+        raise AssertionError(f"LM {arch} bfloat16: card and CPU disagree")
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serve(device: str = "cuda") -> dict:
+    """The served architectures at full config on the card, through the
+    launcher's greedy loop (``launch.serve.generate``) under the one-card
+    mesh's logical rules: prefill, each decode step, peak memory, and one
+    more step under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.dist import elastic, logical
+    from repro_torch.launch.serve import generate
+    from repro_torch.lm import model as M
+    mesh = elastic.make_mesh()
+    rows = {}
+    for arch, batch, prompt, new in LM_SERVE:
+        cfg = configs.lm_config(arch)
+        t0 = time.monotonic()
+        model, _ = M.init(cfg, torch.Generator(device).manual_seed(SEED),
+                          device=device)
+        toks = torch.randint(0, cfg.vocab, (batch, prompt), device=device,
+                             generator=torch.Generator(device).manual_seed(1))
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"LM serve {arch}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {n_params / 1e9:.3f}B params ({cfg.param_dtype}"
+            f" weights, {cfg.dtype} activations), made on the card in "
+            f"{time.monotonic() - t0:.1f} s, {mesh}")
+        max_len = prompt + new + 1      # one slot more for the profiled step
+        M.prefill(model, cfg, tokens=toks, max_len=max_len)     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        marks, finite = [], []
+
+        def on_step(logits):
+            # The finiteness check is queued after the step's mark, so its
+            # few small launches fall into the next step's time.
+            torch.cuda.synchronize()
+            marks.append(time.monotonic())
+            finite.append(torch.isfinite(logits[..., :cfg.vocab]).all())
+
+        ids, last, cache, prefill_s, _ = generate(
+            model, cfg, toks, new, mesh, max_len=max_len, on_step=on_step)
+        prefill_ms = prefill_s * 1e3
+        steps_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if (not bool(torch.stack(finite).all())
+                or int(ids.max()) >= cfg.vocab or len(steps_ms) != new):
+            raise AssertionError(f"LM serve {arch}: non-finite logits or a "
+                                 f"padded-vocab token")
+        nxt = torch.argmax(last, -1)
+        with logical.logical_rules(mesh, logical.RULES_V0), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            last, cache = M.decode_step(model, cfg, nxt, cache, prompt + new)
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+        prof_row = report_profile(prof, wall_us,
+                                  f"LM serve {arch}: one decode step at "
+                                  f"position {prompt + new}")
+        step_ms = statistics.median(steps_ms)
+        # The profiler slows the host: the idle share is read against the
+        # unprofiled median step (the profiled step's own is beside it).
+        idle = 1 - prof_row["busy_us"] / 1e3 / step_ms
+        rows[arch] = {
+            "batch": batch, "prompt": prompt, "new": new,
+            "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+            "tokens_per_s": batch * new / (sum(steps_ms) / 1e3),
+            "prefill_tokens_per_s": batch * prompt / (prefill_ms / 1e3),
+            "peak_gib": peak, "ops_per_step": prof_row["ops"],
+            "busy_ms_per_step": prof_row["busy_us"] / 1e3,
+            "idle_share": idle, "idle_share_profiled": prof_row["idle"]}
+        log(f"LM serve {arch}: batch {batch}, prompt {prompt}: prefill "
+            f"{prefill_ms:.2f} ms ({rows[arch]['prefill_tokens_per_s']:.0f} "
+            f"tokens/s); {new} decode steps, median {step_ms:.3f} ms a step "
+            f"(min {min(steps_ms):.3f}, max {max(steps_ms):.3f}), "
+            f"{rows[arch]['tokens_per_s']:.1f} tokens/s; peak "
+            f"{peak:.2f} GiB; device busy {prof_row['busy_us'] / 1e3:.2f} ms "
+            f"a step, idle share {idle:.3f} of the median step "
+            f"({prof_row['idle']:.3f} of the profiled one); logits finite; "
+            f"first ids {ids[0, :8].tolist()}")
+        del model, cache, last
+        torch.cuda.empty_cache()
+    log("LM serve: " + json.dumps(rows))
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1085,6 +1328,8 @@ def main() -> int:
     phase_profile_cell(cell_batch)
     phase_cell_parity()
     phase_compressed_grads(PARITY_N, 1)
+    phase_lm_hold()
+    phase_lm_serve()
 
     kernels = []
     for name in REPLACES:

@@ -31,7 +31,7 @@ KERNEL_OPS_PATH = "src/repro_torch/kernels/ops.py"
 DEVICE_PATH = "src/repro_torch/device.py"
 
 ZONES = ("core", "kernels", KERNEL_OPS, "models", "serve", "scene", "train",
-         "launch", "dist", "data", "analysis", "other")
+         "launch", "dist", "lm", "data", "configs", "analysis", "other")
 
 _ALL = frozenset(ZONES)
 _KERNELY = frozenset({"kernels", KERNEL_OPS})

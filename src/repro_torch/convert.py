@@ -1,4 +1,4 @@
-"""Carry weights of the JAX package's PNN over to the port's modules.
+"""Carry weights of the JAX package's PNN and LM over to the port's modules.
 
 The JAX parameters are a tree of dicts and lists (``repro.models.pnn.init``)
 whose leaves are arrays; pass it with its leaves converted to numpy (e.g.
@@ -6,6 +6,10 @@ whose leaves are arrays; pass it with its leaves converted to numpy (e.g.
 a dict key is an attribute, a list position is a ``ModuleList`` index, and
 a leaf (``w``, ``b``, ``g``) is a parameter of the same shape.  Dense
 weights stay ``(din, dout)``, used as ``x @ w``: nothing is transposed.
+
+An LM tree (``repro.lm.model.init``) stacks each pattern position's layer
+parameters over reps (``scan`` / ``enc_scan``); ``lm_from_jax`` splits
+that leading axis into the port's per-layer blocks.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.lm import model as lm_model
 from repro_torch.models import pnn
 
 
@@ -50,3 +55,42 @@ def from_jax(params, cfg: pnn.PNNConfig,
     if missing:
         raise ValueError(f"parameters not in the JAX tree: {missing}")
     return model.to(device)
+
+
+def _flatten(tree, path=()) -> dict:
+    """{path tuple: leaf} of a tree of dicts."""
+    if isinstance(tree, dict):
+        out = {}
+        for key, sub in tree.items():
+            out.update(_flatten(sub, path + (key,)))
+        return out
+    return {path: tree}
+
+
+def lm_from_jax(params, cfg: lm_model.LMConfig,
+                device: str | torch.device = "cpu") -> lm_model.LM:
+    """An ``LM`` for ``cfg`` holding the JAX parameter tree ``params``
+    (leaves as numpy).  A stacked leaf fills one block a rep.  Raises if a
+    leaf is missing, left over or of another shape (for a stacked leaf:
+    reps, then the block parameter's shape)."""
+    model, _ = lm_model.init(cfg, device=device)
+    leaves = _flatten(params)
+    want = lm_model.reference_leaves(cfg, model)
+    extra = sorted("/".join(p) for p in set(leaves) - set(want))
+    missing = sorted("/".join(p) for p in set(want) - set(leaves))
+    if extra or missing:
+        raise ValueError(f"LM tree vs module: not in the module {extra}, "
+                         f"not in the JAX tree {missing}")
+    for path, targets in want.items():
+        arr = np.array(leaves[path], dtype=np.float32)
+        stacked = path[0] in ("scan", "enc_scan")
+        shape = tuple(targets[0].shape)
+        expect = (len(targets),) + shape if stacked else shape
+        if arr.shape != expect:
+            raise ValueError(f"{'/'.join(path)}: shape {arr.shape} vs "
+                             f"{expect}")
+        with torch.no_grad():
+            for i, t in enumerate(targets):
+                src = torch.from_numpy(arr[i] if stacked else arr)
+                t.copy_(src.to(t.dtype))
+    return model

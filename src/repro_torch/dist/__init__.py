@@ -1,6 +1,15 @@
-"""repro_torch.dist: gradient codecs (bf16 / stochastic int8) with error
-feedback.  The rest of ``repro.dist`` (logical sharding rules, elastic
-meshes, the jax compat shims) has no counterpart on one card yet."""
-from repro_torch.dist import compression
+"""repro_torch.dist: the distribution subsystem, on one card.
 
-__all__ = ["compression"]
+* ``logical``     logical-axis rules + the ``lc`` constraint helper (the
+  identity on the one-card mesh)
+* ``elastic``     degraded-device mesh selection, ``make_mesh`` over the
+  visible cards
+* ``compression`` gradient codecs (bf16 / stochastic int8) + error
+  feedback
+
+The reference's ``compat`` (shims for jax's mesh API across versions) has
+no counterpart: the port builds its own ``Mesh``.
+"""
+from repro_torch.dist import compression, elastic, logical
+
+__all__ = ["compression", "elastic", "logical"]

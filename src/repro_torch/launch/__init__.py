@@ -4,8 +4,9 @@
   / 1M points) and report its time, peak memory and roofline row
 * ``roofline``  the roofline terms, with the H100's rates
 * ``dryrun``    the command line over the cells
+* ``serve``     LM serving: prefill + greedy decode of a reduced config
 
-The LM cells (``train``, ``serve``, the LM part of ``dryrun`` and ``perf``)
-wait for the port of ``lm/``; the TPU pod meshes of ``launch/mesh.py`` have
-no counterpart on one card.
+The other LM launchers (``train``, the LM cells of ``dryrun`` and
+``perf``) wait for ROADMAP.md A6c/A7; the TPU pod meshes of
+``launch/mesh.py`` have no counterpart on one card.
 """

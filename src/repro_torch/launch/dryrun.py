@@ -2,7 +2,7 @@
 
 Counterpart of the PNN branch of ``repro.launch.dryrun``, which lowers
 the cells for a TPU pod; here each cell runs (``pnn_cell.run_pnn_cell``).
-The LM cells wait for the port of ``lm/`` and ``configs/``.
+The LM cells wait for the LM part of ``launch/`` (ROADMAP.md A7).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch pointnext \\
         --shape pnn_289k [--train] [--batch 4] [--out rows.json]
@@ -50,8 +50,10 @@ def main(argv=None):
         if arch not in PNN_VARIANTS:
             raise ValueError(
                 f"--arch {arch!r}: only the PNN cells {sorted(PNN_VARIANTS)} "
-                f"are ported; the LM archs wait for lm/ and configs/ "
-                f"(ROADMAP.md A6) and the LM cells of launch/ (ROADMAP.md A7)")
+                f"are ported; the LM cells wait for the LM part of launch/ "
+                f"(ROADMAP.md A7), and granite-moe-3b-a800m, "
+                f"llama4-scout-17b-16e, zamba2-7b and xlstm-1.3b for their "
+                f"block kinds as well (ROADMAP.md A6b)")
         if shape not in PNN_SHAPES:
             raise ValueError(f"--shape {shape!r}: have {sorted(PNN_SHAPES)}")
 

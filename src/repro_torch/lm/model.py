@@ -1,0 +1,461 @@
+"""The LM: ``reps`` repetitions of a block ``pattern``, served by prefill
+and greedy decode.
+
+Counterpart of ``repro.lm.model`` for the attention block kinds
+(``attn``, ``local``, ``xattn``, ``enc_attn``), which carry six of the
+ten architectures of ``configs``.  The reference stacks each pattern
+position's parameters over reps and runs the stack under ``lax.scan``;
+here an ``LM`` holds one ``Block`` a layer in a ``ModuleList`` (rep
+major: layer ``r * len(pattern) + i`` is pattern position ``i`` of rep
+``r``), and the stack is a Python loop.  The reference's ``scan_layers``,
+``remat`` and ``unroll_inner`` (how XLA lays out the stack; no ported
+config sets them) are not fields here, so a config that sets one is
+refused.  The decode cache is
+a list with one dict a rep (the reference stacks it over reps), and
+``decode_step`` updates it in place.
+
+The kinds ``moe``, ``mamba``, ``mlstm``, ``slstm`` and ``shared_attn``
+are not ported yet (ROADMAP.md A6b): ``init`` raises for them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.dist.logical import _is_axes_leaf, lc, tree_map
+from repro_torch.lm import attention as attn
+from repro_torch.lm.layers import embed_init, mlp, mlp_init, rmsnorm, \
+    rmsnorm_init, rounded, softcap
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEOpts:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    shared_ff: int = 0
+    router_act: str = "softmax"
+    capacity_factor: float = 1.25
+    dispatch: str = "global_sort"   # global_sort | grouped_a2a
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    d_model: int
+    n_layers: int                       # decoder layers (== reps*len(pattern))
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int | None = None
+    pattern: tuple = ("attn",)
+    rope_theta: float = 10_000.0
+    window: int | None = None           # for "local" blocks
+    attn_softcap: float | None = None
+    final_softcap: float | None = None
+    qk_norm: bool = False
+    attn_scale: float | None = None
+    post_norm: bool = False             # gemma2 sandwich
+    mlp_kind: str = "swiglu"
+    moe: MoEOpts | None = None
+    ssm: Any = None                     # SSM options (ROADMAP.md A6b)
+    xlstm: Any = None                   # xLSTM options (ROADMAP.md A6b)
+    encoder_layers: int = 0             # >0 => encoder-decoder
+    emb_scale: bool = False
+    tie_embeddings: bool = True
+    vocab_pad_to: int = 256
+    param_dtype: str = "float32"
+    dtype: str = "bfloat16"             # activation/compute dtype
+    frontend: str = "tokens"            # tokens | embeddings (audio stub)
+    long_context_ok: bool = False       # sub-quadratic: run long_500k
+    loss_chunk: int = 1024
+    flash_chunk: int = 1024             # KV-chunked attention block size
+
+    @property
+    def hd(self):
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def reps(self):
+        if self.n_layers % len(self.pattern):
+            raise ValueError(f"{self.name}: {self.n_layers} layers % "
+                             f"pattern {len(self.pattern)}")
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def padded_vocab(self):
+        m = self.vocab_pad_to
+        return (self.vocab + m - 1) // m * m
+
+    @property
+    def act_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def attn_kwargs(self, kind):
+        return dict(n_heads=self.n_heads, n_kv=self.n_kv_heads,
+                    head_dim=self.hd, rope_theta=self.rope_theta,
+                    window=self.window
+                    if kind in ("local", "shared_attn") else None,
+                    cap=self.attn_softcap, qk_norm=self.qk_norm,
+                    scale=self.attn_scale)
+
+
+ATTN_KINDS = ("attn", "local", "xattn", "enc_attn")
+UNPORTED_KINDS = ("moe", "mamba", "mlstm", "slstm", "shared_attn")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """One layer: ``ln1``, ``attn``, ``ln2``, ``ffn``; ``pn1``/``pn2``
+    with ``post_norm``; ``xattn``/``lnx`` for ``xattn``."""
+
+
+class LM(nn.Module):
+    """``emb``, ``blocks`` (reps x pattern, rep major), ``lnf``; ``head``
+    when the embeddings are not tied; ``enc_blocks`` and ``enc_lnf`` for an
+    encoder-decoder."""
+
+
+def _check_kinds(cfg: LMConfig) -> None:
+    if cfg.frontend != "tokens":
+        raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} "
+                                  f"is not ported (no config uses it)")
+    for kind in cfg.pattern:
+        if kind in UNPORTED_KINDS:
+            raise NotImplementedError(
+                f"{cfg.name}: block kind {kind!r} is not ported yet "
+                f"(ROADMAP.md A6b)")
+        if kind not in ATTN_KINDS:
+            raise ValueError(kind)
+
+
+def _block_init(gen, cfg: LMConfig, kind: str):
+    d, dt = cfg.d_model, cfg.pdtype
+    p, a = Block(), {}
+    p.ln1, a["ln1"] = rmsnorm_init(d, dt, gen.device)
+    p.attn, a["attn"] = attn.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                       cfg.hd, qk_norm=cfg.qk_norm, dtype=dt)
+    p.ln2, a["ln2"] = rmsnorm_init(d, dt, gen.device)
+    if cfg.post_norm:
+        p.pn1, a["pn1"] = rmsnorm_init(d, dt, gen.device)
+        p.pn2, a["pn2"] = rmsnorm_init(d, dt, gen.device)
+    if kind == "xattn":
+        p.xattn, a["xattn"] = attn.attn_init(
+            gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, qk_norm=False,
+            dtype=dt)
+        p.lnx, a["lnx"] = rmsnorm_init(d, dt, gen.device)
+    p.ffn, a["ffn"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind, dtype=dt)
+    return p, a
+
+
+def _stack_init(gen, cfg: LMConfig, pattern, reps):
+    """(ModuleList of reps x pattern blocks, the reference's axes tree of
+    the stacked params: a leading "layers" axis on every named leaf)."""
+    blocks, axes = nn.ModuleList(), {}
+    for _ in range(reps):
+        for i, kind in enumerate(pattern):
+            block, a = _block_init(gen, cfg, kind)
+            blocks.append(block)
+            axes[f"b{i}_{kind}"] = tree_map(
+                lambda ax: None if ax is None else ("layers",) + tuple(ax),
+                a, is_leaf=_is_axes_leaf)
+    return blocks, axes
+
+
+def init(cfg: LMConfig, generator: torch.Generator | None = None,
+         device=None):
+    """Returns (``LM``, the reference's logical-axes tree).
+
+    Weights are drawn from ``generator`` (default: a CPU generator seeded
+    0) on its device and moved to ``device``: ``None`` is the card, and
+    raises where there is none."""
+    device = resolve_device(device)
+    _check_kinds(cfg)
+    gen = torch.Generator().manual_seed(0) if generator is None \
+        else generator
+    p, a = LM(), {}
+    p.emb, a["emb"] = embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                 cfg.pdtype)
+    p.blocks, a["scan"] = _stack_init(gen, cfg, cfg.pattern, cfg.reps)
+    a["shared"] = {}
+    p.lnf, a["lnf"] = rmsnorm_init(cfg.d_model, cfg.pdtype, gen.device)
+    if not cfg.tie_embeddings:
+        p.head, a["head"] = embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                       cfg.pdtype)
+    if cfg.encoder_layers:
+        p.enc_blocks, a["enc_scan"] = _stack_init(
+            gen, cfg, ("enc_attn",), cfg.encoder_layers)
+        p.enc_lnf, a["enc_lnf"] = rmsnorm_init(cfg.d_model, cfg.pdtype,
+                                               gen.device)
+    return p.to(device), a
+
+
+def reference_leaves(cfg: LMConfig, model: LM) -> dict:
+    """{path in the reference's parameter tree: [parameters]}: one
+    parameter for a plain leaf, one a rep (in rep order) for a leaf of a
+    stacked layer (under ``scan`` / ``enc_scan``)."""
+    out = {("emb", "w"): [model.emb.w], ("lnf", "g"): [model.lnf.g]}
+    if not cfg.tie_embeddings:
+        out[("head", "w")] = [model.head.w]
+    stacks = [("scan", model.blocks, cfg.pattern)]
+    if cfg.encoder_layers:
+        out[("enc_lnf", "g")] = [model.enc_lnf.g]
+        stacks.append(("enc_scan", model.enc_blocks, ("enc_attn",)))
+    for key, blocks, pattern in stacks:
+        n = len(pattern)
+        for i, kind in enumerate(pattern):
+            reps = blocks[i::n]
+            for name, _ in reps[0].named_parameters():
+                out[(key, f"b{i}_{kind}", *name.split("."))] = [
+                    r.get_parameter(name) for r in reps]
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# forward blocks (full-sequence path)
+# ---------------------------------------------------------------------------
+
+def _block_fwd(p, cfg: LMConfig, kind, x, enc_out=None):
+    h = rmsnorm(p.ln1, x)
+    y = attn.full_attention(p.attn, h, causal=kind != "enc_attn",
+                            flash_chunk=cfg.flash_chunk,
+                            **cfg.attn_kwargs(kind))
+    if cfg.post_norm:
+        y = rmsnorm(p.pn1, y)
+    x = x + y
+    if kind == "xattn":
+        h = rmsnorm(p.lnx, x)
+        y = attn.full_attention(p.xattn, h, x_kv=enc_out, causal=False,
+                                use_rope=False, flash_chunk=cfg.flash_chunk,
+                                **cfg.attn_kwargs(kind))
+        x = x + y
+    h = rmsnorm(p.ln2, x)
+    y = mlp(p.ffn, h, cfg.mlp_kind)
+    if cfg.post_norm:
+        y = rmsnorm(p.pn2, y)
+    x = x + y
+    return lc(x, "batch", None, "embed")
+
+
+def _layers(blocks, pattern):
+    """(kind, block) over the stack, rep by rep."""
+    n = len(pattern)
+    return [(pattern[j % n], b) for j, b in enumerate(blocks)]
+
+
+def _run_stack(blocks, cfg: LMConfig, x, pattern, enc_out=None):
+    for kind, p in _layers(blocks, pattern):
+        x = _block_fwd(p, cfg, kind, x, enc_out)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params: LM, cfg: LMConfig, tokens):
+    x = params.emb.w[tokens].to(cfg.act_dtype)
+    if cfg.emb_scale:
+        x = x * rounded(cfg.d_model ** 0.5, cfg.act_dtype)
+    return lc(x, "batch", None, "embed")
+
+
+def encode(params: LM, cfg: LMConfig, frames):
+    """Encoder of an enc-dec model; frames (B, S, D) from the frontend
+    stub."""
+    x = lc(frames.to(cfg.act_dtype), "batch", None, "embed")
+    x = _run_stack(params.enc_blocks, cfg, x, ("enc_attn",))
+    return rmsnorm(params.enc_lnf, x)
+
+
+def _inputs(params, cfg, tokens, frames, dec_tokens):
+    """(decoder input embeddings, encoder output or None)."""
+    if cfg.encoder_layers:
+        return (embed_tokens(params, cfg, dec_tokens),
+                encode(params, cfg, frames))
+    return embed_tokens(params, cfg, tokens), None
+
+
+def forward(params: LM, cfg: LMConfig, tokens=None, frames=None,
+            dec_tokens=None):
+    """Full-sequence forward -> (hidden (B,S,D), aux); aux is 0 (no MoE
+    kind is ported)."""
+    x, enc_out = _inputs(params, cfg, tokens, frames, dec_tokens)
+    x = _run_stack(params.blocks, cfg, x, cfg.pattern, enc_out=enc_out)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rmsnorm(params.lnf, x), aux
+
+
+def _head(params: LM, cfg: LMConfig):
+    return params.emb.w if cfg.tie_embeddings else params.head.w
+
+
+def logits_for(params: LM, cfg: LMConfig, hidden):
+    """(B, T, D) -> (B, T, padded_vocab); the padded vocab is masked to
+    -1e30 after the final softcap."""
+    w = _head(params, cfg)
+    logits = hidden @ w.to(hidden.dtype).T
+    logits = softcap(logits, cfg.final_softcap)
+    mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
+    return torch.where(mask, logits, -1e30)
+
+
+def lm_loss(params: LM, cfg: LMConfig, hidden, targets, loss_mask=None):
+    """Sequence-chunked cross entropy (no (T, V) logits at once)."""
+    b, s, d = hidden.shape
+    c = min(cfg.loss_chunk, s)
+    if s % c:
+        raise ValueError(f"sequence {s} % loss_chunk {c}")
+    w = _head(params, cfg)
+    mask = torch.arange(cfg.padded_vocab, device=hidden.device) < cfg.vocab
+    if loss_mask is None:
+        loss_mask = torch.ones((b, s), dtype=torch.bool,
+                               device=hidden.device)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(s // c):
+        h = hidden[:, i * c:(i + 1) * c]
+        t = targets[:, i * c:(i + 1) * c]
+        m = loss_mask[:, i * c:(i + 1) * c]
+        logits = (h @ w.to(h.dtype).T).float()
+        logits = softcap(logits, cfg.final_softcap)
+        logits = torch.where(mask, logits, -1e30)
+        logits = lc(logits, "batch", None, "vocab")
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, t[..., None].long())[..., 0]
+        nll = torch.where(m, lse - ll, 0.0)
+        tot = tot + nll.sum()
+        cnt = cnt + m.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode (a list of per-rep cache dicts)
+# ---------------------------------------------------------------------------
+
+def init_cache(params: LM, cfg: LMConfig, batch, max_len, enc_len=None):
+    """Zero caches: one dict a rep, one entry a pattern position."""
+    device = params.emb.w.device
+    dt = cfg.act_dtype
+
+    def one(kind):
+        if kind == "xattn":
+            return {"self": attn.init_cache(batch, max_len, cfg.n_kv_heads,
+                                            cfg.hd, dt, device=device),
+                    "cross": attn.init_cache(batch, enc_len, cfg.n_kv_heads,
+                                             cfg.hd, dt, device=device)}
+        return attn.init_cache(batch, max_len, cfg.n_kv_heads, cfg.hd, dt,
+                               window=cfg.window if kind == "local" else None,
+                               device=device)
+
+    return [{f"b{i}_{kind}": one(kind) for i, kind in enumerate(cfg.pattern)}
+            for _ in range(cfg.reps)]
+
+
+def cache_axes(cfg: LMConfig):
+    """The reference's logical axes of the (stacked) cache."""
+    out = {}
+    for i, kind in enumerate(cfg.pattern):
+        one = ({"self": attn.cache_axes(), "cross": attn.cache_axes()}
+               if kind == "xattn" else attn.cache_axes())
+        out[f"b{i}_{kind}"] = tree_map(lambda ax: ("layers",) + tuple(ax),
+                                       one, is_leaf=_is_axes_leaf)
+    return out
+
+
+def _block_decode(p, cfg: LMConfig, kind, x, cache, pos):
+    if kind == "xattn":
+        h = rmsnorm(p.ln1, x)
+        y, new_self = attn.decode_attention(p.attn, h, cache["self"], pos,
+                                            **cfg.attn_kwargs(kind))
+        x = x + y
+        h = rmsnorm(p.lnx, x)
+        y, _ = attn.decode_attention(p.xattn, h, cache["cross"], pos,
+                                     cross=True, use_rope=False,
+                                     **cfg.attn_kwargs(kind))
+        x = x + y
+        h = rmsnorm(p.ln2, x)
+        x = x + mlp(p.ffn, h, cfg.mlp_kind)
+        return x, {"self": new_self, "cross": cache["cross"]}
+    h = rmsnorm(p.ln1, x)
+    y, cache = attn.decode_attention(p.attn, h, cache, pos,
+                                     **cfg.attn_kwargs(kind))
+    if cfg.post_norm:
+        y = rmsnorm(p.pn1, y)
+    x = x + y
+    h = rmsnorm(p.ln2, x)
+    y = mlp(p.ffn, h, cfg.mlp_kind)
+    if cfg.post_norm:
+        y = rmsnorm(p.pn2, y)
+    return x + y, cache
+
+
+@torch.inference_mode()
+def decode_step(params: LM, cfg: LMConfig, token, cache, pos):
+    """One decode step: token (B,1) at position ``pos``.  Returns
+    (logits (B,1,V), cache), the cache updated in place."""
+    x = embed_tokens(params, cfg, token)
+    n = len(cfg.pattern)
+    for j, (kind, p) in enumerate(_layers(params.blocks, cfg.pattern)):
+        rep, name = cache[j // n], f"b{j % n}_{kind}"
+        x, rep[name] = _block_decode(p, cfg, kind, x, rep[name], pos)
+    h = rmsnorm(params.lnf, x)
+    return logits_for(params, cfg, h), cache
+
+
+def _block_prefill(p, cfg: LMConfig, kind, x, max_len, enc_out=None):
+    h = rmsnorm(p.ln1, x)
+    y, kv = attn.prefill_attention(p.attn, h, max_len=max_len,
+                                   flash_chunk=cfg.flash_chunk,
+                                   **cfg.attn_kwargs(kind))
+    if kind == "xattn":
+        x = x + y
+        h = rmsnorm(p.lnx, x)
+        y, xkv = attn.full_attention(p.xattn, h, x_kv=enc_out,
+                                     causal=False, use_rope=False,
+                                     return_kv=True,
+                                     flash_chunk=cfg.flash_chunk,
+                                     **cfg.attn_kwargs(kind))
+        x = x + y
+        h = rmsnorm(p.ln2, x)
+        x = x + mlp(p.ffn, h, cfg.mlp_kind)
+        return x, {"self": kv, "cross": {"k": xkv[0], "v": xkv[1]}}
+    if cfg.post_norm:
+        y = rmsnorm(p.pn1, y)
+    x = x + y
+    h = rmsnorm(p.ln2, x)
+    y = mlp(p.ffn, h, cfg.mlp_kind)
+    if cfg.post_norm:
+        y = rmsnorm(p.pn2, y)
+    return x + y, kv
+
+
+@torch.inference_mode()
+def prefill(params: LM, cfg: LMConfig, tokens=None, frames=None,
+            dec_tokens=None, max_len=None):
+    """The full forward that also fills the caches for ``max_len``
+    positions.  Returns (last-position logits (B,1,V), cache)."""
+    s = (dec_tokens if dec_tokens is not None else
+         tokens if tokens is not None else frames).shape[1]
+    max_len = max_len or s
+    x, enc_out = _inputs(params, cfg, tokens, frames, dec_tokens)
+    n = len(cfg.pattern)
+    cache = [{} for _ in range(cfg.reps)]
+    for j, (kind, p) in enumerate(_layers(params.blocks, cfg.pattern)):
+        x, cache[j // n][f"b{j % n}_{kind}"] = _block_prefill(
+            p, cfg, kind, x, max_len, enc_out)
+    h = rmsnorm(params.lnf, x)
+    return logits_for(params, cfg, h[:, -1:, :]), cache

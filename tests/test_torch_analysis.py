@@ -360,6 +360,8 @@ def test_zone_of_port_paths():
     assert zones.zone_of("src/repro_torch/kernels/ops.py") == "kernels.ops"
     assert zones.zone_of("src/repro_torch/kernels/knn.py") == "kernels"
     assert zones.zone_of("src/repro_torch/dist/compression.py") == "dist"
+    assert zones.zone_of("src/repro_torch/lm/attention.py") == "lm"
+    assert zones.zone_of("src/repro_torch/configs/gemma2_2b.py") == "configs"
     assert zones.zone_of("src/repro_torch/analysis/rules.py") == "analysis"
     assert zones.zone_of("src/repro_torch/device.py") == "other"
     # The JAX package is not the port's: its files are "other" here.
