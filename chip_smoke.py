@@ -86,20 +86,28 @@ of which raises on failure:
    the card against the CPU (one 4096-point cloud), and the codec on the
    card against the CPU on the same gradients, bit for bit;
 14. LM serving (``repro_torch.lm``, no hand-written kernel: the LM path of
-   the reference has no TPU kernel): each of the six attention-family
-   architectures at its published widths (``config()``), one repetition
-   of its block pattern deep (seamless: one encoder layer), in float32
-   with seeded random weights, prefill of a 2 x 32 prompt and 4
-   teacher-forced decode steps on the card against the CPU by the serving
-   rule; gemma2-2b so again at a 1 x 4200 prompt (the chunked attention,
-   a wrapped 4096-slot rolling cache); smollm-135m at full config in
-   bfloat16, card against CPU, within twice the CPU's own bfloat16 vs
-   float32 gap; then smollm-135m (batch 8, prompt 512, 64 new tokens) and
-   gemma2-2b (batch 1, prompt 8192, 32 new tokens: the chunked attention
-   in every layer, both softcaps, the 4096-slot rolling caches past their
-   wrap) at full config (bfloat16 activations, float32 weights, full
-   depth) through the launcher's greedy loop under the one-card mesh's
-   logical rules: prefill time, each decode step, tokens/s, peak device
+   the reference has no TPU kernel): each of the ten architectures at
+   its published widths (``config()``), one repetition of its block
+   pattern deep (seamless: one encoder layer; zamba2: 8 Mamba2 layers and
+   the shared attention; xlstm: 7 mLSTM and 1 sLSTM), in float32 with
+   seeded random weights, prefill of a 2 x 32 prompt and 4 teacher-forced
+   decode steps on the card against the CPU by the serving rule;
+   gemma2-2b and zamba2-7b so again at a 1 x 4200 prompt (the chunked
+   attention, a wrapped 4096-slot rolling cache; 33 SSD chunks, the last
+   padded) and xlstm-1.3b at 1 x 200 (4 mLSTM chunks, the last padded;
+   200 sLSTM steps); smollm-135m and granite-moe-3b-a800m at full config
+   in bfloat16, card against CPU, within twice the CPU's own bfloat16 vs
+   float32 gap, with the number of (token, slot) MoE routes that differ;
+   then at full width (bfloat16 activations, float32 weights) through
+   the launcher's greedy loop under the one-card mesh's logical rules:
+   smollm-135m (batch 8, prompt 512, 64 new tokens), gemma2-2b (batch 1,
+   prompt 8192, 32 new: the chunked attention in every layer, both
+   softcaps, the 4096-slot rolling caches past their wrap),
+   granite-moe-3b-a800m (8 x 512 + 64), llama4-scout-17b-16e (8 x 512 +
+   64, 4 of its 48 layers: the whole model's weights do not fit one
+   card), zamba2-7b (1 x 8192 + 32: 64 SSD chunks, the shared attention
+   past its window) and xlstm-1.3b (4 x 1024 + 64), each at full depth
+   but llama4: prefill time, each decode step, tokens/s, peak device
    memory, finite logits, and one more decode step under
    ``torch.profiler`` (device ops, device busy time; idle share against
    the unprofiled median step).
@@ -164,18 +172,33 @@ LEVEL_DIMS_TIMED = (0, 1)   # the (da, db) pair whose leaf-block call is timed
 # widths, one repetition of the pattern): (arch, batch, prompt, decode
 # steps).  gemma2-2b also at a prompt past the attention's flash threshold
 # (4096 keys): the chunked attention in both layers, and a 4096-slot
-# rolling cache that prefill fills past its size and decode wraps again.
+# rolling cache that prefill fills past its size and decode wraps again;
+# zamba2-7b at 4200 tokens: 33 SSD chunks of 128, the last padded, and the
+# shared attention's 4096-slot rolling cache past its wrap; xlstm-1.3b at
+# 200 tokens: 4 mLSTM chunks of 64, the last padded, and 200 sLSTM steps.
 LM_ARCHS = ("smollm-135m", "minitron-4b", "gemma2-2b", "gemma3-12b",
-            "chameleon-34b", "seamless-m4t-medium")
+            "chameleon-34b", "seamless-m4t-medium", "granite-moe-3b-a800m",
+            "llama4-scout-17b-16e", "zamba2-7b", "xlstm-1.3b")
 LM_HOLD = (tuple((arch, 2, 32, 4) for arch in LM_ARCHS)
-           + (("gemma2-2b", 1, 4200, 4),))
-# smollm-135m at full config in bfloat16, card vs CPU: (batch, prompt,
-# steps).  The card's bfloat16 logits may differ from the CPU's by at most
+           + (("gemma2-2b", 1, 4200, 4), ("zamba2-7b", 1, 4200, 4),
+              ("xlstm-1.3b", 1, 200, 4)))
+# At full config in bfloat16, card vs CPU: (arch, batch, prompt, steps).
+# The card's bfloat16 logits may differ from the CPU's by at most
 # LM_BF16_SLACK times the relative L2 gap between the CPU's bfloat16 and
 # float32 logits (the dtype's own rounding on the same weights).
-LM_HOLD_BF16 = ("smollm-135m", 2, 32, 4)
+LM_HOLD_BF16 = (("smollm-135m", 2, 32, 4), ("granite-moe-3b-a800m", 2, 32, 4))
 LM_BF16_SLACK = 2.0
-LM_SERVE = (("smollm-135m", 8, 512, 64), ("gemma2-2b", 1, 8192, 32))
+# Served at full width through launch.serve.generate: (arch, batch, prompt,
+# new tokens, layers or None for the config's own depth).  llama4's 48
+# layers are ~436 GB of float32 weights (~218 GB in bfloat16) and do not
+# fit one 80 GB card: it runs 4 (~43.5 GB, room left for the per-call
+# bfloat16 casts of its expert weights).
+LM_SERVE = (("smollm-135m", 8, 512, 64, None),
+            ("gemma2-2b", 1, 8192, 32, None),
+            ("granite-moe-3b-a800m", 8, 512, 64, None),
+            ("llama4-scout-17b-16e", 8, 512, 64, 4),
+            ("zamba2-7b", 1, 8192, 32, None),
+            ("xlstm-1.3b", 4, 1024, 64, None))
 
 
 def log(msg=""):
@@ -1102,15 +1125,19 @@ def lm_prompt(cfg, batch: int, prompt: int, seed: int) -> dict:
             "frames": torch.from_numpy(frames.astype(np.float32))}
 
 
-def lm_teacher_forced(runs, kw: dict, prompt: int, steps: int) -> list:
+def lm_teacher_forced(runs, kw: dict, prompt: int, steps: int,
+                      routes=None) -> list:
     """Prefill of ``kw`` and ``steps`` decode steps for each (model, cfg)
     of ``runs``, each on its model's device; the first run's greedy token
     feeds every run.  Returns per run the float32 logits (B, V) of the
-    prefill and of each step."""
+    prefill and of each step.  A ``RouteLog`` given as ``routes`` files
+    each run's routes under the run's index."""
     import torch
     from repro_torch.lm import model as M
     state, logits = [], [[] for _ in runs]
     for j, (model, cfg) in enumerate(runs):
+        if routes is not None:
+            routes.run = j
         dev = next(model.parameters()).device
         last, cache = M.prefill(model, cfg, max_len=prompt + steps,
                                 **{k: v.to(dev) for k, v in kw.items()})
@@ -1119,6 +1146,8 @@ def lm_teacher_forced(runs, kw: dict, prompt: int, steps: int) -> list:
     for i in range(steps):
         nxt = torch.argmax(state[0][0], -1).cpu()
         for j, (model, cfg) in enumerate(runs):
+            if routes is not None:
+                routes.run = j
             last, cache = state[j]
             state[j] = M.decode_step(model, cfg, nxt.to(last.device), cache,
                                      prompt + i)
@@ -1126,11 +1155,22 @@ def lm_teacher_forced(runs, kw: dict, prompt: int, steps: int) -> list:
     return logits
 
 
+def card_copy(model):
+    """``model`` on the card, copied one parameter at a time: the host holds
+    one copy of the weights, not two, and a block shared by several reps
+    stays one block."""
+    import copy
+    import torch
+    memo = {id(p): torch.nn.Parameter(p.detach().cuda(),
+                                      requires_grad=p.requires_grad)
+            for p in model.parameters()}
+    return copy.deepcopy(model, memo)
+
+
 def phase_lm_hold():
     """Each architecture's prefill and teacher-forced decode logits, card
     against CPU on the same weights, by the serving rule (float32); then
-    smollm-135m at full config in bfloat16."""
-    import copy
+    the bfloat16 holds."""
     import torch
     from repro_torch.lm import model as M
     for arch, batch, prompt, steps in LM_HOLD:
@@ -1138,7 +1178,7 @@ def phase_lm_hold():
         cfg = lm_hold_config(arch)
         want_model, _ = M.init(cfg, torch.Generator().manual_seed(SEED),
                                device="cpu")
-        got_model = copy.deepcopy(want_model).cuda()
+        got_model = card_copy(want_model)
         want, got = lm_teacher_forced(
             [(want_model, cfg), (got_model, cfg)],
             lm_prompt(cfg, batch, prompt, SEED + 1), prompt, steps)
@@ -1151,7 +1191,8 @@ def phase_lm_hold():
                     units=("logit sets", "rows"))
         del want_model, got_model
         torch.cuda.empty_cache()
-    phase_lm_hold_bf16()
+    for row in LM_HOLD_BF16:
+        phase_lm_hold_bf16(*row)
 
 
 def rel_l2(got, want) -> float:
@@ -1160,37 +1201,82 @@ def rel_l2(got, want) -> float:
                   / np.linalg.norm(want, axis=-1)).max())
 
 
-def phase_lm_hold_bf16():
-    """smollm-135m at full config (published widths, full depth) in
-    bfloat16 activations: the card against the CPU on the same weights,
-    held to LM_BF16_SLACK times the CPU's own bfloat16-vs-float32 gap."""
-    import copy
+class RouteLog:
+    """Records the expert ids that every MoE layer's router chose (the
+    output of ``moe._route``, the one function that makes them), under the
+    index of the run that ``lm_teacher_forced`` is driving, in call order:
+    the route a token took in each MoE layer of a prefill or a step."""
+
+    def __init__(self):
+        self.routes = {}
+        self.run = None
+
+    def __enter__(self):
+        from repro_torch.lm import moe
+        self.real = real = moe._route
+
+        def logged(*args, **kw):
+            out = real(*args, **kw)
+            self.routes.setdefault(self.run, []).append(out[1].cpu())
+            return out
+
+        moe._route = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.lm import moe
+        moe._route = self.real
+
+    def differ(self, a, b) -> tuple[int, int]:
+        """(routes that differ, routes) between two runs' calls."""
+        ra, rb = self.routes.get(a, []), self.routes.get(b, [])
+        if len(ra) != len(rb):
+            raise AssertionError(f"{len(ra)} MoE calls against {len(rb)}")
+        return (sum(int((x != y).sum()) for x, y in zip(ra, rb)),
+                sum(x.numel() for x in ra))
+
+
+def phase_lm_hold_bf16(arch, batch, prompt, steps):
+    """``arch`` at full config (published widths, full depth) in bfloat16
+    activations: the card against the CPU on the same weights, held to
+    LM_BF16_SLACK times the CPU's own bfloat16-vs-float32 gap; for a MoE
+    architecture, how many (token, slot) routes differ between the two."""
     import dataclasses
     import torch
     from repro_torch import configs
     from repro_torch.lm import model as M
-    arch, batch, prompt, steps = LM_HOLD_BF16
     t0 = time.monotonic()
     cfg = configs.lm_config(arch)
     if cfg.dtype != "bfloat16":
         raise AssertionError(f"{arch}: config() serves in {cfg.dtype}")
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     cpu, _ = M.init(cfg, torch.Generator().manual_seed(SEED), device="cpu")
-    card = copy.deepcopy(cpu).cuda()
-    cpu16, card16, cpu32 = lm_teacher_forced(
-        [(cpu, cfg), (card, cfg), (cpu, cfg32)],
-        lm_prompt(cfg, batch, prompt, SEED + 1), prompt, steps)
+    card = card_copy(cpu)
+    with RouteLog() as log_:
+        runs = lm_teacher_forced(
+            [(cpu, cfg), (card, cfg), (cpu, cfg32)],
+            lm_prompt(cfg, batch, prompt, SEED + 1), prompt, steps,
+            routes=log_)
+    # The padded vocabulary holds -1e30 on every side: the real one only.
+    cpu16, card16, cpu32 = ([x[..., :cfg.vocab] for x in run] for run in runs)
     card_gap = max(rel_l2(g, w) for g, w in zip(card16, cpu16))
     dtype_gap = max(rel_l2(g, w) for g, w in zip(cpu16, cpu32))
     card_vs_32 = max(rel_l2(g, w) for g, w in zip(card16, cpu32))
     worst = max(float(np.abs(g - w).max()) for g, w in zip(card16, cpu16))
     finite = all(np.isfinite(g).all() for g in card16)
+    routes = ""
+    if cfg.moe is not None:
+        n, total = log_.differ(1, 0)        # card vs CPU, bfloat16
+        n32, _ = log_.differ(0, 2)          # the CPU's bfloat16 vs float32
+        routes = (f"; (token, slot) routes differing card vs CPU: {n} of "
+                  f"{total} ({cfg.n_layers} layers x (prefill + {steps} "
+                  f"steps)); the CPU's bfloat16 vs float32: {n32}")
     log(f"LM {arch} bfloat16 (full config, {cfg.n_layers} layers; prefill "
         f"{batch}x{prompt} + {steps} decode steps, "
         f"{time.monotonic() - t0:.1f} s), card vs CPU: relative L2 "
         f"{card_gap:.4g} (max |d| {worst:.4g}); the CPU's bfloat16 vs "
         f"float32 {dtype_gap:.4g}, the card's {card_vs_32:.4g}; limit "
-        f"{LM_BF16_SLACK} x {dtype_gap:.4g}")
+        f"{LM_BF16_SLACK} x {dtype_gap:.4g}{routes}")
     if not finite or not card_gap <= LM_BF16_SLACK * dtype_gap:
         raise AssertionError(f"LM {arch} bfloat16: card and CPU disagree")
     del cpu, card
@@ -1210,15 +1296,20 @@ def phase_lm_serve(device: str = "cuda") -> dict:
     from repro_torch.lm import model as M
     mesh = elastic.make_mesh()
     rows = {}
-    for arch, batch, prompt, new in LM_SERVE:
+    for arch, batch, prompt, new, layers in LM_SERVE:
         cfg = configs.lm_config(arch)
+        cut = ""
+        if layers is not None:
+            cut = (f" (depth cut from {cfg.n_layers}: the weights of all "
+                   f"{cfg.n_layers} layers do not fit one card)")
+            cfg = configs.lm_config(arch, n_layers=layers)
         t0 = time.monotonic()
         model, _ = M.init(cfg, torch.Generator(device).manual_seed(SEED),
                           device=device)
         toks = torch.randint(0, cfg.vocab, (batch, prompt), device=device,
                              generator=torch.Generator(device).manual_seed(1))
         n_params = sum(p.numel() for p in model.parameters())
-        log(f"LM serve {arch}: {cfg.n_layers} layers, d_model "
+        log(f"LM serve {arch}: {cfg.n_layers} layers{cut}, d_model "
             f"{cfg.d_model}, {n_params / 1e9:.3f}B params ({cfg.param_dtype}"
             f" weights, {cfg.dtype} activations), made on the card in "
             f"{time.monotonic() - t0:.1f} s, {mesh}")
@@ -1265,6 +1356,7 @@ def phase_lm_serve(device: str = "cuda") -> dict:
             "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
             "tokens_per_s": batch * new / (sum(steps_ms) / 1e3),
             "prefill_tokens_per_s": batch * prompt / (prefill_ms / 1e3),
+            "layers": cfg.n_layers, "params": n_params,
             "peak_gib": peak, "ops_per_step": prof_row["ops"],
             "busy_ms_per_step": prof_row["busy_us"] / 1e3,
             "idle_share": idle, "idle_share_profiled": prof_row["idle"]}
@@ -1277,10 +1369,54 @@ def phase_lm_serve(device: str = "cuda") -> dict:
             f"a step, idle share {idle:.3f} of the median step "
             f"({prof_row['idle']:.3f} of the profiled one); logits finite; "
             f"first ids {ids[0, :8].tolist()}")
+        if "slstm" in cfg.pattern:
+            rows[arch]["slstm_layer"] = slstm_host_cost(model, cfg, batch,
+                                                        prompt)
         del model, cache, last
         torch.cuda.empty_cache()
     log("LM serve: " + json.dumps(rows))
     return rows
+
+
+def slstm_host_cost(model, cfg, batch: int, prompt: int) -> dict:
+    """The sLSTM's share of a prefill: one sLSTM layer's forward over the
+    prompt (one step a token, a Python loop), timed on the host clock and
+    then under torch.profiler (device ops and busy time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.lm import xlstm
+    i = cfg.pattern.index("slstm")
+    block = model.blocks[i]
+    dev = block.ln1.g.device
+    x = torch.randn((batch, prompt, cfg.d_model), device=dev,
+                    generator=torch.Generator(dev).manual_seed(2)
+                    ).to(cfg.act_dtype)
+
+    def run():
+        with torch.inference_mode():
+            xlstm.slstm_forward(block.mix, x, d=cfg.d_model, cfg=cfg.xlstm)
+        torch.cuda.synchronize()
+
+    run()                                                   # warm-up
+    t0 = time.monotonic()
+    run()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run()
+        prof_wall_us = (time.monotonic() - t0) * 1e6
+    row = report_profile(prof, prof_wall_us,
+                         f"sLSTM layer {i}: forward over {batch}x{prompt}",
+                         top=4)
+    out = {"ms": wall_ms, "steps": prompt, "us_per_step": wall_ms * 1e3
+           / prompt, "ops": row["ops"], "busy_ms": row["busy_us"] / 1e3}
+    log(f"sLSTM layer {i} of {cfg.name}: {batch}x{prompt} in {wall_ms:.1f} "
+        f"ms unprofiled ({out['us_per_step']:.1f} us a step, "
+        f"{row['ops'] / prompt:.1f} device ops a step, device busy "
+        f"{out['busy_ms']:.2f} ms); {cfg.pattern.count('slstm') * cfg.reps} "
+        f"such layers a prefill")
+    return out
 
 
 def main() -> int:

@@ -1,10 +1,7 @@
-"""Config registry: the LM architectures ported so far + the paper's PNN
-configs.
+"""Config registry: the ten LM architectures + the paper's PNN configs.
 
-Counterpart of ``repro.configs``.  ``ARCHS`` holds the six architectures
-whose blocks are attention kinds only; granite-moe-3b-a800m,
-llama4-scout-17b-16e, zamba2-7b and xlstm-1.3b wait for their block kinds
-(MoE, Mamba2, xLSTM, shared attention: ROADMAP.md A6b).
+Counterpart of ``repro.configs``; each config is the reference's,
+verbatim.
 
 ``get(arch_id)`` returns the module (with ``config()`` / ``reduced()``);
 ``lm_config(arch_id)`` / ``lm_reduced(arch_id)`` return LMConfig instances.
@@ -16,12 +13,16 @@ import importlib
 from repro_torch.configs.shapes import SHAPES, ShapeSpec, applicable
 
 ARCHS = {
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "llama4-scout-17b-16e": "llama4_scout_17b_16e",
+    "zamba2-7b": "zamba2_7b",
     "minitron-4b": "minitron_4b",
     "smollm-135m": "smollm_135m",
     "gemma2-2b": "gemma2_2b",
     "gemma3-12b": "gemma3_12b",
     "seamless-m4t-medium": "seamless_m4t_medium",
     "chameleon-34b": "chameleon_34b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 PNN_ARCHS = ("pointnet2", "pointnext", "pointvector")

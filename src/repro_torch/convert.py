@@ -9,7 +9,9 @@ weights stay ``(din, dout)``, used as ``x @ w``: nothing is transposed.
 
 An LM tree (``repro.lm.model.init``) stacks each pattern position's layer
 parameters over reps (``scan`` / ``enc_scan``); ``lm_from_jax`` splits
-that leading axis into the port's per-layer blocks.
+that leading axis into the port's per-layer blocks.  A shared position's
+block (``shared``, zamba2's attention) is one unstacked subtree, copied
+into the one block every rep uses.
 """
 from __future__ import annotations
 
@@ -70,9 +72,10 @@ def _flatten(tree, path=()) -> dict:
 def lm_from_jax(params, cfg: lm_model.LMConfig,
                 device: str | torch.device = "cpu") -> lm_model.LM:
     """An ``LM`` for ``cfg`` holding the JAX parameter tree ``params``
-    (leaves as numpy).  A stacked leaf fills one block a rep.  Raises if a
-    leaf is missing, left over or of another shape (for a stacked leaf:
-    reps, then the block parameter's shape)."""
+    (leaves as numpy).  A stacked leaf fills one block a rep, a shared
+    leaf its one block.  Raises if a leaf is missing, left over or of
+    another shape (for a stacked leaf: reps, then the block parameter's
+    shape)."""
     model, _ = lm_model.init(cfg, device=device)
     leaves = _flatten(params)
     want = lm_model.reference_leaves(cfg, model)

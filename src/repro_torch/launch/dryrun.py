@@ -51,9 +51,7 @@ def main(argv=None):
             raise ValueError(
                 f"--arch {arch!r}: only the PNN cells {sorted(PNN_VARIANTS)} "
                 f"are ported; the LM cells wait for the LM part of launch/ "
-                f"(ROADMAP.md A7), and granite-moe-3b-a800m, "
-                f"llama4-scout-17b-16e, zamba2-7b and xlstm-1.3b for their "
-                f"block kinds as well (ROADMAP.md A6b)")
+                f"(ROADMAP.md A7)")
         if shape not in PNN_SHAPES:
             raise ValueError(f"--shape {shape!r}: have {sorted(PNN_SHAPES)}")
 

@@ -1,26 +1,28 @@
 """The LM: ``reps`` repetitions of a block ``pattern``, served by prefill
 and greedy decode.
 
-Counterpart of ``repro.lm.model`` for the attention block kinds
-(``attn``, ``local``, ``xattn``, ``enc_attn``), which carry six of the
-ten architectures of ``configs``.  The reference stacks each pattern
-position's parameters over reps and runs the stack under ``lax.scan``;
-here an ``LM`` holds one ``Block`` a layer in a ``ModuleList`` (rep
-major: layer ``r * len(pattern) + i`` is pattern position ``i`` of rep
-``r``), and the stack is a Python loop.  The reference's ``scan_layers``,
-``remat`` and ``unroll_inner`` (how XLA lays out the stack; no ported
-config sets them) are not fields here, so a config that sets one is
-refused.  The decode cache is
-a list with one dict a rep (the reference stacks it over reps), and
+Counterpart of ``repro.lm.model``, for every block kind of the ten
+architectures of ``configs``: the attention kinds (``attn``, ``local``,
+``xattn``, ``enc_attn``), ``moe`` (attention and a mixture-of-experts
+FFN), ``mamba``, ``mlstm``, ``slstm`` (``ln1`` and a mixer ``mix``, no
+FFN) and ``shared_attn``.  The reference stacks each pattern position's
+parameters over reps and runs the stack under ``lax.scan``; here an
+``LM`` holds one ``Block`` a layer in a ``ModuleList`` (rep major: layer
+``r * len(pattern) + i`` is pattern position ``i`` of rep ``r``), and the
+stack is a Python loop.  A ``shared_attn`` position is one ``Block``,
+held once under ``LM.shared`` and placed at that position of every rep
+(the same module, so its parameters count once); each rep keeps its own
+cache.  The reference's ``scan_layers``, ``remat`` and ``unroll_inner``
+(how XLA lays out the stack; no ported config sets them) are not fields
+here, so a config that sets one is refused; so is ``MoEOpts.dispatch``,
+whose ``grouped_a2a`` is ``global_sort`` on one card.  The decode cache
+is a list with one dict a rep (the reference stacks it over reps), and
 ``decode_step`` updates it in place.
-
-The kinds ``moe``, ``mamba``, ``mlstm``, ``slstm`` and ``shared_attn``
-are not ported yet (ROADMAP.md A6b): ``init`` raises for them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
@@ -28,6 +30,9 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.dist.logical import _is_axes_leaf, lc, tree_map
 from repro_torch.lm import attention as attn
+from repro_torch.lm import moe as moe_lib
+from repro_torch.lm import ssm as ssm_lib
+from repro_torch.lm import xlstm as xlstm_lib
 from repro_torch.lm.layers import embed_init, mlp, mlp_init, rmsnorm, \
     rmsnorm_init, rounded, softcap
 
@@ -40,7 +45,6 @@ class MoEOpts:
     shared_ff: int = 0
     router_act: str = "softmax"
     capacity_factor: float = 1.25
-    dispatch: str = "global_sort"   # global_sort | grouped_a2a
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,8 +67,8 @@ class LMConfig:
     post_norm: bool = False             # gemma2 sandwich
     mlp_kind: str = "swiglu"
     moe: MoEOpts | None = None
-    ssm: Any = None                     # SSM options (ROADMAP.md A6b)
-    xlstm: Any = None                   # xLSTM options (ROADMAP.md A6b)
+    ssm: ssm_lib.SSMConfig | None = None
+    xlstm: xlstm_lib.XLSTMConfig | None = None
     encoder_layers: int = 0             # >0 => encoder-decoder
     emb_scale: bool = False
     tie_embeddings: bool = True
@@ -109,8 +113,41 @@ class LMConfig:
                     scale=self.attn_scale)
 
 
-ATTN_KINDS = ("attn", "local", "xattn", "enc_attn")
-UNPORTED_KINDS = ("moe", "mamba", "mlstm", "slstm", "shared_attn")
+ATTN_KINDS = ("attn", "local", "moe", "shared_attn", "xattn", "enc_attn")
+SHARED_KINDS = ("shared_attn",)
+
+
+class Mixer(NamedTuple):
+    """A mixer kind's functions: ``init``, ``forward``, ``decode``, its
+    decode ``state(batch, d, cfg, dtype, device)`` and ``state_axes()``."""
+    init: Callable
+    forward: Callable
+    decode: Callable
+    state: Callable
+    state_axes: Callable
+
+
+# The mixer kinds: ``ln1`` and ``mix``.
+MIXERS = {
+    "mamba": Mixer(ssm_lib.mamba2_init, ssm_lib.mamba2_forward,
+                   ssm_lib.mamba2_decode,
+                   lambda b, d, c, dt, dev: ssm_lib.init_state(
+                       b, d, c, dt, device=dev),
+                   ssm_lib.state_axes),
+    "mlstm": Mixer(xlstm_lib.mlstm_init, xlstm_lib.mlstm_forward,
+                   xlstm_lib.mlstm_decode,
+                   lambda b, d, c, dt, dev: xlstm_lib.mlstm_state(
+                       b, d, c, device=dev),
+                   xlstm_lib.mlstm_state_axes),
+    "slstm": Mixer(xlstm_lib.slstm_init, xlstm_lib.slstm_forward,
+                   xlstm_lib.slstm_decode,
+                   lambda b, d, c, dt, dev: xlstm_lib.slstm_state(
+                       b, d, c, device=dev),
+                   xlstm_lib.slstm_state_axes)}
+
+
+def _mix_cfg(cfg: LMConfig, kind):
+    return cfg.ssm if kind == "mamba" else cfg.xlstm
 
 
 # ---------------------------------------------------------------------------
@@ -118,12 +155,15 @@ UNPORTED_KINDS = ("moe", "mamba", "mlstm", "slstm", "shared_attn")
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One layer: ``ln1``, ``attn``, ``ln2``, ``ffn``; ``pn1``/``pn2``
-    with ``post_norm``; ``xattn``/``lnx`` for ``xattn``."""
+    """One layer.  Attention kinds: ``ln1``, ``attn``, ``ln2``, ``ffn`` (a
+    ``moe.MoE`` for ``moe``); ``pn1``/``pn2`` with ``post_norm``;
+    ``xattn``/``lnx`` for ``xattn``.  ``mamba``/``mlstm``/``slstm``:
+    ``ln1`` and ``mix``."""
 
 
 class LM(nn.Module):
-    """``emb``, ``blocks`` (reps x pattern, rep major), ``lnf``; ``head``
+    """``emb``, ``blocks`` (reps x pattern, rep major), ``shared`` (the
+    shared positions' blocks, also placed in ``blocks``), ``lnf``; ``head``
     when the embeddings are not tied; ``enc_blocks`` and ``enc_lnf`` for an
     encoder-decoder."""
 
@@ -133,11 +173,7 @@ def _check_kinds(cfg: LMConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} "
                                   f"is not ported (no config uses it)")
     for kind in cfg.pattern:
-        if kind in UNPORTED_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported yet "
-                f"(ROADMAP.md A6b)")
-        if kind not in ATTN_KINDS:
+        if kind not in ATTN_KINDS and kind not in MIXERS:
             raise ValueError(kind)
 
 
@@ -145,6 +181,10 @@ def _block_init(gen, cfg: LMConfig, kind: str):
     d, dt = cfg.d_model, cfg.pdtype
     p, a = Block(), {}
     p.ln1, a["ln1"] = rmsnorm_init(d, dt, gen.device)
+    if kind in MIXERS:
+        p.mix, a["mix"] = MIXERS[kind].init(gen, d, _mix_cfg(cfg, kind),
+                                            dt)
+        return p, a
     p.attn, a["attn"] = attn.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
                                        cfg.hd, qk_norm=cfg.qk_norm, dtype=dt)
     p.ln2, a["ln2"] = rmsnorm_init(d, dt, gen.device)
@@ -156,22 +196,38 @@ def _block_init(gen, cfg: LMConfig, kind: str):
             gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, qk_norm=False,
             dtype=dt)
         p.lnx, a["lnx"] = rmsnorm_init(d, dt, gen.device)
-    p.ffn, a["ffn"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind, dtype=dt)
+    if kind == "moe":
+        p.ffn, a["ffn"] = moe_lib.moe_init(
+            gen, d, cfg.moe.d_ff_expert, cfg.moe.num_experts,
+            kind=cfg.mlp_kind, shared_ff=cfg.moe.shared_ff, dtype=dt)
+    else:
+        p.ffn, a["ffn"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind, dtype=dt)
     return p, a
 
 
 def _stack_init(gen, cfg: LMConfig, pattern, reps):
     """(ModuleList of reps x pattern blocks, the reference's axes tree of
-    the stacked params: a leading "layers" axis on every named leaf)."""
+    the stacked params: a leading "layers" axis on every named leaf; the
+    shared positions' blocks, made once and placed in every rep, and their
+    axes)."""
     blocks, axes = nn.ModuleList(), {}
+    shared, shared_axes = nn.ModuleDict(), {}
+    for i, kind in enumerate(pattern):
+        if kind in SHARED_KINDS:
+            name = f"b{i}_{kind}"
+            shared[name], shared_axes[name] = _block_init(gen, cfg, kind)
     for _ in range(reps):
         for i, kind in enumerate(pattern):
+            name = f"b{i}_{kind}"
+            if kind in SHARED_KINDS:
+                blocks.append(shared[name])
+                continue
             block, a = _block_init(gen, cfg, kind)
             blocks.append(block)
-            axes[f"b{i}_{kind}"] = tree_map(
+            axes[name] = tree_map(
                 lambda ax: None if ax is None else ("layers",) + tuple(ax),
                 a, is_leaf=_is_axes_leaf)
-    return blocks, axes
+    return blocks, axes, shared, shared_axes
 
 
 def init(cfg: LMConfig, generator: torch.Generator | None = None,
@@ -188,14 +244,14 @@ def init(cfg: LMConfig, generator: torch.Generator | None = None,
     p, a = LM(), {}
     p.emb, a["emb"] = embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                  cfg.pdtype)
-    p.blocks, a["scan"] = _stack_init(gen, cfg, cfg.pattern, cfg.reps)
-    a["shared"] = {}
+    p.blocks, a["scan"], p.shared, a["shared"] = _stack_init(
+        gen, cfg, cfg.pattern, cfg.reps)
     p.lnf, a["lnf"] = rmsnorm_init(cfg.d_model, cfg.pdtype, gen.device)
     if not cfg.tie_embeddings:
         p.head, a["head"] = embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                        cfg.pdtype)
     if cfg.encoder_layers:
-        p.enc_blocks, a["enc_scan"] = _stack_init(
+        p.enc_blocks, a["enc_scan"], _, _ = _stack_init(
             gen, cfg, ("enc_attn",), cfg.encoder_layers)
         p.enc_lnf, a["enc_lnf"] = rmsnorm_init(cfg.d_model, cfg.pdtype,
                                                gen.device)
@@ -204,11 +260,15 @@ def init(cfg: LMConfig, generator: torch.Generator | None = None,
 
 def reference_leaves(cfg: LMConfig, model: LM) -> dict:
     """{path in the reference's parameter tree: [parameters]}: one
-    parameter for a plain leaf, one a rep (in rep order) for a leaf of a
-    stacked layer (under ``scan`` / ``enc_scan``)."""
+    parameter for a plain leaf and for a shared block's leaf (under
+    ``shared``), one a rep (in rep order) for a leaf of a stacked layer
+    (under ``scan`` / ``enc_scan``)."""
     out = {("emb", "w"): [model.emb.w], ("lnf", "g"): [model.lnf.g]}
     if not cfg.tie_embeddings:
         out[("head", "w")] = [model.head.w]
+    for block_name, block in model.shared.items():
+        for name, param in block.named_parameters():
+            out[("shared", block_name, *name.split("."))] = [param]
     stacks = [("scan", model.blocks, cfg.pattern)]
     if cfg.encoder_layers:
         out[("enc_lnf", "g")] = [model.enc_lnf.g]
@@ -216,6 +276,8 @@ def reference_leaves(cfg: LMConfig, model: LM) -> dict:
     for key, blocks, pattern in stacks:
         n = len(pattern)
         for i, kind in enumerate(pattern):
+            if kind in SHARED_KINDS:
+                continue
             reps = blocks[i::n]
             for name, _ in reps[0].named_parameters():
                 out[(key, f"b{i}_{kind}", *name.split("."))] = [
@@ -228,7 +290,18 @@ def reference_leaves(cfg: LMConfig, model: LM) -> dict:
 # forward blocks (full-sequence path)
 # ---------------------------------------------------------------------------
 
+def _moe_kw(cfg: LMConfig):
+    return dict(n_experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                kind=cfg.mlp_kind, capacity_factor=cfg.moe.capacity_factor,
+                router_act=cfg.moe.router_act, shared=cfg.moe.shared_ff > 0)
+
+
 def _block_fwd(p, cfg: LMConfig, kind, x, enc_out=None):
+    """-> (x, the block's MoE aux loss or None)."""
+    if kind in MIXERS:
+        y = MIXERS[kind].forward(p.mix, rmsnorm(p.ln1, x), d=cfg.d_model,
+                                 cfg=_mix_cfg(cfg, kind))
+        return lc(x + y, "batch", None, "embed"), None
     h = rmsnorm(p.ln1, x)
     y = attn.full_attention(p.attn, h, causal=kind != "enc_attn",
                             flash_chunk=cfg.flash_chunk,
@@ -243,11 +316,16 @@ def _block_fwd(p, cfg: LMConfig, kind, x, enc_out=None):
                                 **cfg.attn_kwargs(kind))
         x = x + y
     h = rmsnorm(p.ln2, x)
-    y = mlp(p.ffn, h, cfg.mlp_kind)
+    aux = None
+    if kind == "moe":
+        y, mo = moe_lib.moe_apply(p.ffn, h, **_moe_kw(cfg))
+        aux = 0.01 * mo["aux_lb"] + 0.001 * mo["aux_z"]
+    else:
+        y = mlp(p.ffn, h, cfg.mlp_kind)
     if cfg.post_norm:
         y = rmsnorm(p.pn2, y)
     x = x + y
-    return lc(x, "batch", None, "embed")
+    return lc(x, "batch", None, "embed"), aux
 
 
 def _layers(blocks, pattern):
@@ -257,9 +335,13 @@ def _layers(blocks, pattern):
 
 
 def _run_stack(blocks, cfg: LMConfig, x, pattern, enc_out=None):
+    """-> (x, the sum of the MoE blocks' aux losses, float32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p in _layers(blocks, pattern):
-        x = _block_fwd(p, cfg, kind, x, enc_out)
-    return x
+        x, a = _block_fwd(p, cfg, kind, x, enc_out)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +359,7 @@ def encode(params: LM, cfg: LMConfig, frames):
     """Encoder of an enc-dec model; frames (B, S, D) from the frontend
     stub."""
     x = lc(frames.to(cfg.act_dtype), "batch", None, "embed")
-    x = _run_stack(params.enc_blocks, cfg, x, ("enc_attn",))
+    x, _ = _run_stack(params.enc_blocks, cfg, x, ("enc_attn",))
     return rmsnorm(params.enc_lnf, x)
 
 
@@ -291,11 +373,10 @@ def _inputs(params, cfg, tokens, frames, dec_tokens):
 
 def forward(params: LM, cfg: LMConfig, tokens=None, frames=None,
             dec_tokens=None):
-    """Full-sequence forward -> (hidden (B,S,D), aux); aux is 0 (no MoE
-    kind is ported)."""
+    """Full-sequence forward -> (hidden (B,S,D), aux): aux is the sum over
+    the MoE layers of ``0.01 * aux_lb + 0.001 * aux_z`` (0 without one)."""
     x, enc_out = _inputs(params, cfg, tokens, frames, dec_tokens)
-    x = _run_stack(params.blocks, cfg, x, cfg.pattern, enc_out=enc_out)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _run_stack(params.blocks, cfg, x, cfg.pattern, enc_out=enc_out)
     return rmsnorm(params.lnf, x), aux
 
 
@@ -357,8 +438,12 @@ def init_cache(params: LM, cfg: LMConfig, batch, max_len, enc_len=None):
                                             cfg.hd, dt, device=device),
                     "cross": attn.init_cache(batch, enc_len, cfg.n_kv_heads,
                                              cfg.hd, dt, device=device)}
+        if kind in MIXERS:
+            return MIXERS[kind].state(batch, cfg.d_model,
+                                      _mix_cfg(cfg, kind), dt, device)
         return attn.init_cache(batch, max_len, cfg.n_kv_heads, cfg.hd, dt,
-                               window=cfg.window if kind == "local" else None,
+                               window=cfg.window if kind in
+                               ("local", "shared_attn") else None,
                                device=device)
 
     return [{f"b{i}_{kind}": one(kind) for i, kind in enumerate(cfg.pattern)}
@@ -369,14 +454,30 @@ def cache_axes(cfg: LMConfig):
     """The reference's logical axes of the (stacked) cache."""
     out = {}
     for i, kind in enumerate(cfg.pattern):
-        one = ({"self": attn.cache_axes(), "cross": attn.cache_axes()}
-               if kind == "xattn" else attn.cache_axes())
+        if kind == "xattn":
+            one = {"self": attn.cache_axes(), "cross": attn.cache_axes()}
+        elif kind in MIXERS:
+            one = MIXERS[kind].state_axes()
+        else:
+            one = attn.cache_axes()
         out[f"b{i}_{kind}"] = tree_map(lambda ax: ("layers",) + tuple(ax),
                                        one, is_leaf=_is_axes_leaf)
     return out
 
 
+def _ffn(p, cfg: LMConfig, kind, h, no_drop=False):
+    """The FFN half of an attention block: the MoE (dropping at the
+    capacity factor, or none dropped for a decode step) or the MLP."""
+    if kind == "moe":
+        return moe_lib.moe_ffn(p.ffn, h, no_drop=no_drop, **_moe_kw(cfg))
+    return mlp(p.ffn, h, cfg.mlp_kind)
+
+
 def _block_decode(p, cfg: LMConfig, kind, x, cache, pos):
+    if kind in MIXERS:
+        y, cache = MIXERS[kind].decode(p.mix, rmsnorm(p.ln1, x), cache,
+                                        d=cfg.d_model, cfg=_mix_cfg(cfg, kind))
+        return x + y, cache
     if kind == "xattn":
         h = rmsnorm(p.ln1, x)
         y, new_self = attn.decode_attention(p.attn, h, cache["self"], pos,
@@ -397,7 +498,7 @@ def _block_decode(p, cfg: LMConfig, kind, x, cache, pos):
         y = rmsnorm(p.pn1, y)
     x = x + y
     h = rmsnorm(p.ln2, x)
-    y = mlp(p.ffn, h, cfg.mlp_kind)
+    y = _ffn(p, cfg, kind, h, no_drop=True)
     if cfg.post_norm:
         y = rmsnorm(p.pn2, y)
     return x + y, cache
@@ -417,6 +518,11 @@ def decode_step(params: LM, cfg: LMConfig, token, cache, pos):
 
 
 def _block_prefill(p, cfg: LMConfig, kind, x, max_len, enc_out=None):
+    if kind in MIXERS:
+        y, state = MIXERS[kind].forward(p.mix, rmsnorm(p.ln1, x),
+                                        d=cfg.d_model, cfg=_mix_cfg(cfg, kind),
+                                        return_state=True)
+        return x + y, state
     h = rmsnorm(p.ln1, x)
     y, kv = attn.prefill_attention(p.attn, h, max_len=max_len,
                                    flash_chunk=cfg.flash_chunk,
@@ -437,7 +543,7 @@ def _block_prefill(p, cfg: LMConfig, kind, x, max_len, enc_out=None):
         y = rmsnorm(p.pn1, y)
     x = x + y
     h = rmsnorm(p.ln2, x)
-    y = mlp(p.ffn, h, cfg.mlp_kind)
+    y = _ffn(p, cfg, kind, h)
     if cfg.post_norm:
         y = rmsnorm(p.pn2, y)
     return x + y, kv

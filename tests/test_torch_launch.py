@@ -237,7 +237,7 @@ def test_run_pnn_cell_holds_every_leaf_chunk(kind):
 
 
 def test_dryrun_refuses_lm_archs():
-    with pytest.raises(ValueError, match="A7.*A6b"):
+    with pytest.raises(ValueError, match="A7"):
         dryrun.main(["--arch", "smollm-135m", "--shape", "train_4k"])
     with pytest.raises(ValueError, match="pnn_33k"):
         dryrun.main(["--arch", "pointnext", "--shape", "pnn_2k"])

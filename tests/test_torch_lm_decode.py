@@ -1,11 +1,13 @@
 """The port's LM serving path (``prefill`` + ``decode_step``) against the
-JAX package's, on the six reduced attention-family configs, within 1e-4.
+JAX package's, on the ten reduced configs, within 1e-4.
 
-For each config: prefill's last logits and every layer's cache, then 4
-teacher-forced decode steps (JAX's greedy token is fed to both sides),
-their logits and the caches after them (``run_serving`` and the weights'
-route, ``convert.lm_from_jax``, are those of ``test_torch_lm_model.py``,
-which also runs gemma3's rolling caches through their wrap).
+For each config: prefill's last logits and every layer's cache (KV caches,
+SSD and conv states, mLSTM and sLSTM states), then 4 teacher-forced decode
+steps (JAX's greedy token is fed to both sides), their logits and the
+caches after them (``run_serving`` and the weights' route,
+``convert.lm_from_jax``, are those of ``test_torch_lm_model.py``, which
+also runs gemma3's and zamba2's rolling caches through their wrap;
+``test_torch_lm_kinds.py`` runs each block kind alone).
 """
 import jax
 import pytest
@@ -30,3 +32,4 @@ def _one_thread():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_teacher_forced_decode(arch):
     run_serving(arch, PROMPT, STEPS, S)
+

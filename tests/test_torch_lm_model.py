@@ -1,10 +1,12 @@
 """The port's LM (``repro_torch.lm.model``) against the JAX package's, on
-the six reduced attention-family configs, within 1e-4 (the bar the PNN
-logits hold): the full forward's hidden states and ``lm_loss`` of each,
-and seamless's encoder on its own; gemma3 (window 16) prefills 20 tokens
-and decodes 8 teacher-forced steps, so its rolling caches wrap.
-``test_torch_lm_decode.py`` holds prefill and decode of all six with the
-helpers of this file.
+the ten reduced configs, within 1e-4 (the bar the PNN logits hold): the
+full forward's hidden states, MoE aux loss and ``lm_loss`` of each, and
+seamless's encoder on its own; gemma3 (window 16) prefills 20 tokens and
+decodes 8 teacher-forced steps, so its rolling caches wrap, and zamba2's
+shared attention (window 64) does the same past a 70-token prompt.
+``test_torch_lm_decode.py`` holds prefill and decode of all ten, and
+``test_torch_lm_kinds.py`` each block kind alone, with the helpers of
+this file.
 
 Weights go JAX -> port through ``convert.lm_from_jax``; inputs are made
 with numpy from a seed.
@@ -77,21 +79,27 @@ def sides(batch, upto=None):
             {k: cut(k, t) for k, (_, t) in batch.items()})
 
 
+def flat(tree, path=""):
+    """{"a/b": leaf} of a tree of dicts."""
+    if not isinstance(tree, dict):
+        return {path: tree}
+    return {k: v for key, sub in tree.items()
+            for k, v in flat(sub, f"{path}/{key}" if path else key).items()}
+
+
 def hold_cache(cache, jcache, cfg):
+    """Every rep's cache (KV, SSD and conv states, mLSTM / sLSTM states)
+    against the reference's, stacked over reps."""
     assert len(cache) == cfg.reps
+    jflat = flat(jcache)
     for r, rep in enumerate(cache):
-        assert set(rep) == set(jcache)
-        for name, entry in rep.items():
-            flat = entry if "k" in entry else {
-                f"{part}/{kv}": t for part, d in entry.items()
-                for kv, t in d.items()}
-            jflat = jcache[name] if "k" in jcache[name] else {
-                f"{part}/{kv}": t for part, d in jcache[name].items()
-                for kv, t in d.items()}
-            for key, t in flat.items():
-                want = np.asarray(jflat[key][r])
-                assert tuple(t.shape) == want.shape, (r, name, key)
-                close(t, want)
+        got = flat(rep)
+        assert set(got) == set(jflat)
+        for key, t in got.items():
+            want = np.asarray(jflat[key][r])
+            assert tuple(t.shape) == want.shape, (r, key)
+            assert str(t.dtype) == f"torch.{want.dtype}", (r, key)
+            close(t, want)
 
 
 ARCHS = sorted(configs.ARCHS)
@@ -122,10 +130,11 @@ def run_serving(arch, prompt, steps, max_len, **overrides):
 def test_forward_and_loss(arch):
     jcfg, params, cfg, model = pair(arch)
     jb, tb = sides(inputs(cfg, S))
-    jh, _ = jmodel.forward(params, jcfg, **jb)
+    jh, jaux = jmodel.forward(params, jcfg, **jb)
     h, aux = M.forward(model, cfg, **tb)
     close(h, jh)
-    assert float(aux) == 0.0
+    close(aux, jaux)
+    assert (float(aux.detach()) > 0) == ("moe" in cfg.pattern)
     targets = np.array(jb.get("tokens", jb.get("dec_tokens")))
     jloss = jmodel.lm_loss(params, jcfg, jh, jnp.asarray(targets))
     loss = M.lm_loss(model, cfg, h, torch.from_numpy(targets))
@@ -144,3 +153,11 @@ def test_gemma3_rolling_caches_wrap():
     cache holds the last 16 keys at slots ``pos % 16`` and wraps again."""
     cfg, _ = run_serving("gemma3-12b", 20, 8, 28)
     assert cfg.window == 16
+
+
+def test_zamba2_shared_attention_cache_wraps():
+    """Window 64 under a 70-token prompt and 4 steps: each rep's cache of
+    the one shared attention block holds the last 64 keys and wraps."""
+    cfg, _ = run_serving("zamba2-7b", 70, 4, 74)
+    assert cfg.window == 64 and "shared_attn" in cfg.pattern
+

@@ -3,21 +3,24 @@ what holds on the port alone, the bfloat16 cast order against the JAX
 package, and the edges of the API.
 
 * prefill + one decode step equals the full forward's last logits for the
-  six reduced configs (the reference's bar, tests/test_lm_archs.py), and a
-  4-token greedy decode equals recomputing the forward (smollm);
+  ten reduced configs (the reference's bar, tests/test_lm_archs.py), and a
+  4-token greedy decode equals recomputing the forward (smollm, and the
+  recurrent zamba2 and xlstm: chunked == recurrent);
+* zamba2's shared attention is one set of weights: the model counts it
+  once, and changing it changes every rep's output;
 * bfloat16 (smollm reduced, ``dtype="bfloat16"``): bit for bit against
   the reference run op by op (``scan_layers=False, remat=False``), and
   within 2 bfloat16 ulps of the logits' scale (hidden states within 1/16)
   against the reference under ``lax.scan`` + remat, whose XLA fusion
   rounds differently;
 * decoding past the cache raises (the reference clamps the write);
-* ``init`` needs the card unless asked for the CPU; the unported block
-  kinds raise naming ROADMAP A6b; the converter refuses a missing, extra
-  or misshapen leaf; ``ARCHS`` is the reference's minus four, each
-  config verbatim; the reference's stack-layout knobs are refused;
+* ``init`` needs the card unless asked for the CPU; the converter refuses
+  a missing, extra or misshapen leaf (a shared one too); ``ARCHS`` is the
+  reference's ten, each config verbatim; the reference's stack-layout
+  knobs are refused;
 * ``python -m repro_torch.launch.serve --device cpu`` prints the ids of a
-  greedy loop over the port's own prefill / decode, and the logits under
-  the one-card mesh's rules equal those without.
+  greedy loop over the port's own prefill / decode (smollm, zamba2), and
+  the logits under the one-card mesh's rules equal those without.
 """
 import dataclasses
 import re
@@ -31,6 +34,7 @@ torch = pytest.importorskip("torch")
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.lm import model as jmodel  # noqa: E402
+from repro.lm import xlstm as jxlstm  # noqa: E402
 from repro_torch import configs, convert  # noqa: E402
 from repro_torch.dist import elastic, logical  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -41,6 +45,8 @@ jax.config.update("jax_platform_name", "cpu")
 BF16_LOGITS_TOL = 2 ** -7   # 2 bfloat16 ulps at the logits' scale (~0.5)
 BF16_HIDDEN_TOL = 2 ** -4   # 4 bfloat16 ulps at the hidden scale (2..4)
 UNCARRIED = ("scan_layers", "remat", "unroll_inner")  # not LMConfig's
+XLSTM_UNCARRIED = ("unroll",)                         # not XLSTMConfig's
+MOE_UNCARRIED = ("dispatch",)                         # not MoEOpts'
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -84,10 +90,12 @@ def test_prefill_decode_matches_full_forward(arch):
                                rtol=2e-3, atol=2e-3)
 
 
-def test_multi_step_decode():
+@pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-7b", "xlstm-1.3b"])
+def test_multi_step_decode(arch):
     """Greedy decode of 4 tokens through the cache == recomputing the full
-    forward, each token consumed once."""
-    cfg, model = model_for("smollm-135m")
+    forward, each token consumed once (a recurrent state, unlike a KV
+    cache, would take a token fed twice)."""
+    cfg, model = model_for(arch)
     s0, n_new = 8, 4
     cur = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, (1, s0)))
@@ -164,13 +172,44 @@ def test_init_needs_the_card_unless_asked(monkeypatch):
         M.init(configs.lm_reduced("smollm-135m"))
 
 
-@pytest.mark.parametrize("kind", ["moe", "mamba", "mlstm", "slstm",
-                                  "shared_attn"])
-def test_unported_kinds_raise(kind):
-    cfg = dataclasses.replace(configs.lm_reduced("smollm-135m"),
-                              pattern=(kind,))
-    with pytest.raises(NotImplementedError, match="A6b"):
-        M.init(cfg, device="cpu")
+def test_shared_block_is_one_set_of_weights(monkeypatch):
+    """zamba2 (reduced: 2 reps of mamba, mamba, shared_attn): the shared
+    block is one module in every rep, its parameters count once (as many
+    as the reference's tree holds), and a change to one of them changes
+    the block's output in every rep."""
+    cfg, model = model_for("zamba2-7b")
+    shared = model.shared["b2_shared_attn"]
+    n = len(cfg.pattern)
+    assert all(model.blocks[r * n + 2] is shared for r in range(cfg.reps))
+    count = sum(p.numel() for p in model.parameters())
+    once = sum(p.numel() for p in shared.parameters())
+    assert count == sum(p.numel() for b in model.blocks
+                        for p in b.parameters()) - (cfg.reps - 1) * once \
+        + model.emb.w.numel() + model.lnf.g.numel()
+    jparams, _ = jmodel.init(jax.random.PRNGKey(0),
+                             jconfigs.lm_reduced("zamba2-7b"))
+    assert count == sum(a.size for a in jax.tree.leaves(jparams))
+
+    runs = [[]]
+    real = M._block_fwd
+
+    def spy(p, cfg_, kind, x, enc_out=None):
+        out = real(p, cfg_, kind, x, enc_out)
+        if p is shared:
+            runs[-1].append(out[0])
+        return out
+
+    monkeypatch.setattr(M, "_block_fwd", spy)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (1, 8)))
+    with torch.no_grad():
+        M.forward(model, cfg, tokens=toks)
+        runs.append([])
+        shared.attn.wo.w.add_(0.5)
+        M.forward(model, cfg, tokens=toks)
+    before, after = runs
+    assert len(before) == len(after) == cfg.reps
+    assert all(not torch.equal(a, b) for a, b in zip(before, after))
 
 
 def test_converter_checks_every_leaf():
@@ -198,13 +237,26 @@ def test_converter_checks_every_leaf():
         lambda a: a[:1], params["scan"]["b0_attn"])})
     with pytest.raises(ValueError, match="shape"):
         convert.lm_from_jax(one_rep, cfg)
+    # zamba2's shared block: one unstacked subtree under "shared".
+    zcfg = configs.lm_reduced("zamba2-7b")
+    zp = jax.tree.map(np.asarray, jmodel.init(
+        jax.random.PRNGKey(0), jconfigs.lm_reduced("zamba2-7b"))[0])
+    model = convert.lm_from_jax(zp, zcfg)
+    np.testing.assert_array_equal(
+        model.shared["b2_shared_attn"].attn.wq.w.detach().numpy(),
+        zp["shared"]["b2_shared_attn"]["attn"]["wq"]["w"])
+    stacked = dict(zp, shared={"b2_shared_attn": jax.tree.map(
+        lambda a: np.stack([a, a]), zp["shared"]["b2_shared_attn"])})
+    with pytest.raises(ValueError, match="shared/b2_shared_attn/.*shape"):
+        convert.lm_from_jax(stacked, zcfg)
+    with pytest.raises(ValueError, match="shared/b2_shared_attn/ln2/g"):
+        convert.lm_from_jax(dict(zp, shared={"b2_shared_attn": {
+            k: v for k, v in zp["shared"]["b2_shared_attn"].items()
+            if k != "ln2"}}), zcfg)
 
 
-def test_archs_are_the_reference_minus_the_unported_four():
-    unported = {"granite-moe-3b-a800m", "llama4-scout-17b-16e",
-                "zamba2-7b", "xlstm-1.3b"}
-    assert configs.ARCHS == {k: v for k, v in jconfigs.ARCHS.items()
-                             if k not in unported}
+def test_archs_are_the_reference_verbatim():
+    assert configs.ARCHS == jconfigs.ARCHS
     assert configs.PNN_ARCHS == jconfigs.PNN_ARCHS
     assert configs.SHAPES == {k: configs.ShapeSpec(**dataclasses.asdict(v))
                               for k, v in jconfigs.SHAPES.items()}
@@ -216,9 +268,17 @@ def test_archs_are_the_reference_minus_the_unported_four():
             # reference's defaults in every ported config
             assert {k: want.pop(k) for k in UNCARRIED} == \
                 {k: getattr(jmodel.LMConfig, k) for k in UNCARRIED}
+            if want["xlstm"] is not None:
+                assert {k: want["xlstm"].pop(k) for k in XLSTM_UNCARRIED} \
+                    == {k: getattr(jxlstm.XLSTMConfig, k)
+                        for k in XLSTM_UNCARRIED}
+            if want["moe"] is not None:
+                assert {k: want["moe"].pop(k) for k in MOE_UNCARRIED} \
+                    == {k: getattr(jmodel.MoEOpts, k)
+                        for k in MOE_UNCARRIED}
             assert got == want, (arch, make)
     with pytest.raises(KeyError, match="unknown arch"):
-        configs.get("zamba2-7b")
+        configs.get("gpt-5")
 
 
 @pytest.mark.parametrize("knob", UNCARRIED)
@@ -230,13 +290,14 @@ def test_config_refuses_the_reference_stack_knobs(knob):
         configs.lm_reduced("smollm-135m", **{knob: False})
 
 
-def test_serve_cli_prints_the_greedy_ids(capsys):
-    assert serve.main(["--arch", "smollm-135m", "--batch", "2",
+@pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-7b"])
+def test_serve_cli_prints_the_greedy_ids(capsys, arch):
+    assert serve.main(["--arch", arch, "--batch", "2",
                        "--prompt-len", "16", "--max-new", "8",
                        "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     ids = eval(re.search(r"generated ids: (\[.*\])", out).group(1))
-    cfg, model = model_for("smollm-135m", seed=0)
+    cfg, model = model_for(arch, seed=0)
     toks = torch.randint(0, cfg.vocab, (2, 16),
                          generator=torch.Generator().manual_seed(1))
     last, cache = M.prefill(model, cfg, tokens=toks, max_len=24)
