@@ -110,7 +110,22 @@ of which raises on failure:
    but llama4: prefill time, each decode step, tokens/s, peak device
    memory, finite logits, and one more decode step under
    ``torch.profiler`` (device ops, device busy time; idle share against
-   the unprofiled median step).
+   the unprofiled median step);
+15. LM training (``repro_torch.lm.steps``, ``launch.train``, the LM cells
+   of ``launch.dryrun``; no hand-written kernel): the first step's
+   gradients of smollm-135m, gemma2-2b, seamless-m4t-medium,
+   granite-moe-3b-a800m, zamba2-7b and xlstm-1.3b (every block kind; one
+   repetition of the pattern at published widths, float32, 1 x 64 tokens)
+   on the card against the CPU by ``checks.hold_grads`` (a parameter all
+   zero on the CPU all zero on the card); then ``launch.train``'s entry
+   point for smollm-135m at full config, 8 x 4096 tokens in 8
+   microbatches, 20 steps (a falling loss; median step, tokens/s, peak
+   memory, usefulness and model-flops share of the bfloat16 peak, one
+   step under ``torch.profiler``), a checkpointed run to 10 steps and its
+   rerun to 12 (a resume at step 10), 5 steps with int8 compression; and
+   four LM cells through ``launch.dryrun.run_cell``: smollm-135m x
+   train_4k, prefill_32k (batch 1) and decode_32k, zamba2-7b x long_500k,
+   each row with its cuts.
 
 It then prints a ``{"kernels": [...]}`` line and, last, the device line.
 Without a CUDA card it exits non-zero and prints no result.
@@ -193,6 +208,28 @@ LM_BF16_SLACK = 2.0
 # layers are ~436 GB of float32 weights (~218 GB in bfloat16) and do not
 # fit one 80 GB card: it runs 4 (~43.5 GB, room left for the per-call
 # bfloat16 casts of its expert weights).
+# Phase 15: LM training.  First-step gradients card vs CPU, float32, one
+# repetition of the pattern at published widths, on 1 x LM_GRAD_TOKENS
+# tokens, for six archs that between them hold every block kind: attn;
+# local, softcaps, post-norm; enc_attn, xattn, frames; moe; mamba,
+# shared_attn; mlstm, slstm.
+LM_GRAD_ARCHS = ("smollm-135m", "gemma2-2b", "seamless-m4t-medium",
+                 "granite-moe-3b-a800m", "zamba2-7b", "xlstm-1.3b")
+LM_GRAD_TOKENS = 64
+# launch.train at full config: (batch, seq, microbatch); TRAIN_STEPS steps,
+# then a checkpointed run to LM_CKPT_STEPS and a rerun to LM_RESUME_STEPS,
+# then LM_INT8_STEPS with int8 compression.
+LM_TRAIN_ARCH = "smollm-135m"
+LM_TRAIN_SHAPE = (8, 4096, 8)
+LM_CKPT_STEPS, LM_RESUME_STEPS, LM_INT8_STEPS = 10, 12, 5
+# LM cells through launch.dryrun.run_cell: (arch, shape, batch or None to
+# fit it); prefill_32k at batch 1 (its float32 chunked attention takes
+# ~1 s a sequence).
+LM_CELLS = (("smollm-135m", "train_4k", None),
+            ("smollm-135m", "prefill_32k", 1),
+            ("smollm-135m", "decode_32k", None),
+            ("zamba2-7b", "long_500k", None))
+LM_CELL_REPS = 2
 LM_SERVE = (("smollm-135m", 8, 512, 64, None),
             ("gemma2-2b", 1, 8192, 32, None),
             ("granite-moe-3b-a800m", 8, 512, 64, None),
@@ -1155,16 +1192,27 @@ def lm_teacher_forced(runs, kw: dict, prompt: int, steps: int,
     return logits
 
 
-def card_copy(model):
-    """``model`` on the card, copied one parameter at a time: the host holds
-    one copy of the weights, not two, and a block shared by several reps
-    stays one block."""
+def card_copy(model, device: str = "cuda"):
+    """``model`` on ``device``, copied one parameter at a time: the source
+    side holds one copy of the weights, not two, and a block shared by
+    several reps stays one block."""
     import copy
     import torch
-    memo = {id(p): torch.nn.Parameter(p.detach().cuda(),
+    memo = {id(p): torch.nn.Parameter(p.detach().to(device),
                                       requires_grad=p.requires_grad)
             for p in model.parameters()}
     return copy.deepcopy(model, memo)
+
+
+def seeded_pair(cfg):
+    """(the model on the CPU, the same weights on the card): drawn on the
+    card from SEED (seconds where the CPU takes tens of them for the
+    largest layers), then copied to the CPU."""
+    import torch
+    from repro_torch.lm import model as M
+    card, _ = M.init(cfg, torch.Generator("cuda").manual_seed(SEED),
+                     device="cuda")
+    return card_copy(card, "cpu"), card
 
 
 def phase_lm_hold():
@@ -1172,13 +1220,10 @@ def phase_lm_hold():
     against CPU on the same weights, by the serving rule (float32); then
     the bfloat16 holds."""
     import torch
-    from repro_torch.lm import model as M
     for arch, batch, prompt, steps in LM_HOLD:
         t0 = time.monotonic()
         cfg = lm_hold_config(arch)
-        want_model, _ = M.init(cfg, torch.Generator().manual_seed(SEED),
-                               device="cpu")
-        got_model = card_copy(want_model)
+        want_model, got_model = seeded_pair(cfg)
         want, got = lm_teacher_forced(
             [(want_model, cfg), (got_model, cfg)],
             lm_prompt(cfg, batch, prompt, SEED + 1), prompt, steps)
@@ -1244,14 +1289,12 @@ def phase_lm_hold_bf16(arch, batch, prompt, steps):
     import dataclasses
     import torch
     from repro_torch import configs
-    from repro_torch.lm import model as M
     t0 = time.monotonic()
     cfg = configs.lm_config(arch)
     if cfg.dtype != "bfloat16":
         raise AssertionError(f"{arch}: config() serves in {cfg.dtype}")
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    cpu, _ = M.init(cfg, torch.Generator().manual_seed(SEED), device="cpu")
-    card = card_copy(cpu)
+    cpu, card = seeded_pair(cfg)
     with RouteLog() as log_:
         runs = lm_teacher_forced(
             [(cpu, cfg), (card, cfg), (cpu, cfg32)],
@@ -1419,6 +1462,185 @@ def slstm_host_cost(model, cfg, batch: int, prompt: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# LM training.
+# ---------------------------------------------------------------------------
+
+def phase_lm_train_grads():
+    """The first training step's gradients of LM_GRAD_ARCHS (one
+    repetition, float32, published widths) on the card against the CPU on
+    the same weights and tokens, by ``checks.hold_grads`` (a parameter all
+    zero on the CPU must be all zero on the card)."""
+    import torch
+    from repro_torch.kernels import checks
+    from repro_torch.launch.train import make_batch
+    from repro_torch.lm import steps
+    for arch in LM_GRAD_ARCHS:
+        t0 = time.monotonic()
+        cfg = lm_hold_config(arch)
+        cpu, card = seeded_pair(cfg)
+        runs = []
+        for model, dev in ((cpu, "cpu"), (card, "cuda")):
+            grads, loss, aux = steps.grads_fn(model, cfg)(
+                steps.param_dict(model),
+                make_batch(cfg, SEED, 0, 1, LM_GRAD_TOKENS, dev))
+            runs.append((grads, float(loss), float(aux)))
+        (want, wl, wa), (got, gl, ga) = runs
+        rel = checks.hold_grads(got, want, zero_ok=True)
+        zero = sum(1 for g in want.values() if not bool(g.abs().sum() > 0))
+        worst = max(rel, key=rel.get)
+        log(f"LM gradients {arch} ({cfg.n_layers} layers {cfg.pattern}, "
+            f"d_model {cfg.d_model}, float32, 1x{LM_GRAD_TOKENS} tokens), "
+            f"card vs CPU: loss {gl:.7f} vs {wl:.7f}, aux {ga:.7f} vs "
+            f"{wa:.7f}; {len(got)} parameters, all finite, largest "
+            f"relative L2 {rel[worst]:.3g} ({worst}; rule <= "
+            f"{checks.GRAD_REL_TOL}); {zero} all zero on the CPU and on the "
+            f"card; {time.monotonic() - t0:.1f} s")
+        del cpu, card, runs, got, want
+        torch.cuda.empty_cache()
+
+
+def lm_train_argv(steps: int, *extra) -> list:
+    b, s, mb = LM_TRAIN_SHAPE
+    return ["--arch", LM_TRAIN_ARCH, "--full-config", "--batch", str(b),
+            "--seq", str(s), "--microbatch", str(mb), "--steps", str(steps),
+            *extra]
+
+
+def lm_train_profile(run: dict, median_s: float) -> dict:
+    """Two more steps of the timed run (``launch.train.main``'s train step,
+    parameters and optimizer state, on its batch 0), one counted (FLOPs,
+    bytes) and one under torch.profiler: the model-flops share,
+    usefulness and the card's idle share against the run's median step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rl
+    b, s, mb = LM_TRAIN_SHAPE
+    cfg, step = run["cfg"], run["train_step"]
+    params, state = run["params"], run["opt_state"]
+    batch = run["next_batch"](0)
+
+    def one():
+        return float(step(params, state, batch)[2]["loss"])
+
+    counts = dryrun.count(one)
+    model_flops = rl.model_flops_for(cfg, "train", s, b,
+                                     rl.active_params(cfg, run["model"]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        one()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    row = report_profile(prof, wall_us, f"profile LM train step "
+                         f"{LM_TRAIN_ARCH} ({b}x{s}, microbatch {mb})",
+                         top=10)
+    return {"model_flops": model_flops, "counted_flops": counts["flops"],
+            "counted_bytes": counts["bytes"],
+            "usefulness": model_flops / counts["flops"],
+            "mfu_bf16": model_flops / (median_s * rl.PEAK_FLOPS_BF16),
+            "ops": row["ops"], "busy_ms": row["busy_us"] / 1e3,
+            "idle_share": 1 - row["busy_us"] / 1e6 / median_s,
+            "idle_share_profiled": row["idle"]}
+
+
+def phase_lm_train() -> dict:
+    """``launch.train``'s entry point at full config: TRAIN_STEPS steps
+    (falling loss; median step, tokens/s, peak memory, model-flops share,
+    one profiled step); a checkpointed run and its rerun (a resume at the
+    checkpoint's step); int8 compression."""
+    import tempfile
+    import torch
+    from repro_torch.launch import train as launch_train
+    b, s, mb = LM_TRAIN_SHAPE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    info = launch_train.main(lm_train_argv(TRAIN_STEPS), log=log)
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in info["history"]]
+    dts = [h["dt"] for h in info["history"]]
+    hold_losses(losses, f"LM training {LM_TRAIN_ARCH}")
+    med = statistics.median(dts)
+    prof = lm_train_profile(info, med)
+    del info
+    torch.cuda.empty_cache()
+    row = {"arch": LM_TRAIN_ARCH, "batch": b, "seq": s, "microbatch": mb,
+           "steps": len(losses), "wall_s": wall, "median_step_ms": med * 1e3,
+           "first_step_ms": dts[0] * 1e3, "tokens_per_s": b * s / med,
+           "peak_gib": peak, **prof}
+    log(f"LM training {LM_TRAIN_ARCH} full config, {b}x{s} (microbatch "
+        f"{mb}): {len(losses)} steps in {wall:.1f} s, median step "
+        f"{med * 1e3:.1f} ms (first {dts[0] * 1e3:.1f} ms), "
+        f"{row['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GiB; "
+        f"usefulness {prof['usefulness']:.3f} (model flops "
+        f"{prof['model_flops']:.4g} / counted {prof['counted_flops']:.4g}), "
+        f"model-flops share of the bf16 peak {prof['mfu_bf16']:.4f}; "
+        f"profiled step: {prof['ops']} device ops, busy "
+        f"{prof['busy_ms']:.1f} ms, idle share {prof['idle_share']:.3f} of "
+        f"the median step")
+    log("LM losses: " + " ".join(f"{x:.4f}" for x in losses))
+    log("LM step ms: " + " ".join(f"{x * 1e3:.1f}" for x in dts))
+    with tempfile.TemporaryDirectory() as ckpt:
+        launch_train.main(lm_train_argv(LM_CKPT_STEPS, "--ckpt", ckpt),
+                          log=log)
+        seen = []
+
+        def keep(msg):
+            seen.append(msg)
+            log(msg)
+
+        again = launch_train.main(
+            lm_train_argv(LM_RESUME_STEPS, "--ckpt", ckpt), log=keep)
+    resumed = [h["loss"] for h in again["history"]]
+    want = f"[loop] restored step {LM_CKPT_STEPS}, resuming at " \
+        f"{LM_CKPT_STEPS}"
+    if want not in seen or len(resumed) != LM_RESUME_STEPS - LM_CKPT_STEPS \
+            or not np.isfinite(resumed).all():
+        raise AssertionError(f"LM resume: {seen[-3:]}, losses {resumed}")
+    log(f"LM resume: restored at step {LM_CKPT_STEPS}, steps "
+        f"{[h['step'] for h in again['history']]}, losses {resumed}")
+    del again
+    torch.cuda.empty_cache()
+    int8 = launch_train.main(
+        lm_train_argv(LM_INT8_STEPS, "--compression", "int8"), log=log)
+    q = [h["loss"] for h in int8["history"]]
+    qdt = statistics.median(h["dt"] for h in int8["history"])
+    del int8
+    if len(q) != LM_INT8_STEPS or not np.isfinite(q).all():
+        raise AssertionError(f"LM int8 training: losses {q}")
+    row["int8_median_step_ms"] = qdt * 1e3
+    log(f"LM training with int8 compression: {len(q)} steps, losses "
+        f"{' '.join(f'{x:.4f}' for x in q)}, median step {qdt * 1e3:.1f} ms "
+        f"against {med * 1e3:.1f} ms uncompressed")
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_lm_cells() -> list:
+    """LM_CELLS through ``launch.dryrun.run_cell`` on the card, each row
+    with its cuts."""
+    import torch
+    from repro_torch.launch import dryrun
+    rows = []
+    for arch, shape, batch in LM_CELLS:
+        d = dryrun.run_cell(arch, shape, batch=batch, reps=LM_CELL_REPS)
+        keep = ("arch", "shape", "kind", "batch", "ref_batch", "microbatch",
+                "reps", "ref_reps", "reduced", "step_s", "warm_s",
+                "hlo_flops_per_chip", "hlo_bytes_per_chip", "model_flops",
+                "n_params", "n_active", "run_params", "usefulness",
+                "bottleneck", "bound_fraction", "probe")
+        row = {k: d[k] for k in keep}
+        row["peak_gib"] = d["mem_per_device"]["peak_mb"] / 1024
+        log(f"LM cell row: {json.dumps(row)}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1466,6 +1688,9 @@ def main() -> int:
     phase_compressed_grads(PARITY_N, 1)
     phase_lm_hold()
     phase_lm_serve()
+    phase_lm_train_grads()
+    phase_lm_train()
+    phase_lm_cells()
 
     kernels = []
     for name in REPLACES:

@@ -86,7 +86,7 @@ def lm_from_jax(params, cfg: lm_model.LMConfig,
                          f"not in the JAX tree {missing}")
     for path, targets in want.items():
         arr = np.array(leaves[path], dtype=np.float32)
-        stacked = path[0] in ("scan", "enc_scan")
+        stacked = path[0] in lm_model.STACKS
         shape = tuple(targets[0].shape)
         expect = (len(targets),) + shape if stacked else shape
         if arr.shape != expect:

@@ -58,8 +58,9 @@ Rules:
   tolerance stands for the order of float32 sums, which the function's
   contract does not fix;
 * a model's gradients, card against CPU (``hold_grads``): every parameter
-  gets a gradient that is not all zero, within ``GRAD_REL_TOL`` relative
-  L2 of the CPU's.  The kernels repeat their plain versions' indices
+  gets a finite gradient that is not all zero (for an LM: not all zero
+  where the CPU's is not, all zero where it is), within ``GRAD_REL_TOL``
+  relative L2 of the CPU's.  The kernels repeat their plain versions' indices
   exactly, so what differs is the order of float32 sums (matmuls, the
   scatter-adds), far below this bar.
 """
@@ -482,21 +483,41 @@ def hold_result(name: str, args: dict, got, want, tol: float = D2_TOL) -> dict:
     return {"max_abs_err": 0.0, "count_rows": rows}
 
 
-def hold_grads(card: dict, cpu: dict, tol: float = GRAD_REL_TOL) -> dict:
+def hold_grads(card: dict, cpu: dict, tol: float = GRAD_REL_TOL,
+               zero_ok: bool = False) -> dict:
     """Hold gradients {name: tensor or None} computed on the card against
     the same parameters' gradients on the CPU.  Raises if a parameter has
-    no gradient or an all-zero one on the card, or differs from the CPU's
-    by more than ``tol`` in relative L2.  Returns {name: relative L2}."""
+    no gradient, a non-finite one or an all-zero one on the card, or
+    differs from the CPU's by more than ``tol`` in relative L2.  With
+    ``zero_ok`` (an LM, whose MoE experts may see no token), a parameter
+    whose CPU gradient is all zero must be all zero on the card too, and
+    holds at 0.  Returns {name: relative L2}."""
     if sorted(card) != sorted(cpu):
         raise AssertionError("the two gradient sets name different "
                              "parameters")
-    silent = [k for k, g in card.items()
-              if g is None or not bool(g.abs().sum() > 0)]
+
+    def zero(g):
+        return g is None or not bool(g.abs().sum() > 0)
+
+    inf = [k for k, g in card.items()
+           if g is not None and not bool(torch.isfinite(g).all())]
+    if inf:
+        raise AssertionError(f"non-finite gradients on the card: {inf}")
+
+    idle = {k for k, g in cpu.items() if zero_ok and zero(g)}
+    silent = [k for k, g in card.items() if k not in idle and zero(g)]
     if silent:
         raise AssertionError(f"{len(silent)} of {len(card)} parameters get "
                              f"no gradient on the card: {silent}")
+    bad = [k for k in idle if not zero(card[k])]
+    if bad:
+        raise AssertionError(f"parameters with an all-zero gradient on the "
+                             f"CPU get one on the card: {bad}")
     rel = {}
     for k, g in card.items():
+        if k in idle:
+            rel[k] = 0.0
+            continue
         want = cpu[k].double()
         rel[k] = float((g.double().cpu() - want).norm()
                        / want.norm().clamp(min=1e-30))

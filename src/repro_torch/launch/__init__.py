@@ -1,12 +1,17 @@
-"""repro_torch.launch: the PNN cells of ``repro.launch`` on one card.
+"""repro_torch.launch: the cells and launchers of ``repro.launch`` on one
+card.
 
 * ``pnn_cell``  run a serving or fine-tune step at S3DIS scale (33K / 289K
   / 1M points) and report its time, peak memory and roofline row
-* ``roofline``  the roofline terms, with the H100's rates
-* ``dryrun``    the command line over the cells
+* ``roofline``  the roofline terms, with the H100's rates, and the LM
+  estimators ``count_params``, ``active_params``, ``model_flops_for``
+* ``dryrun``    run the LM (arch x shape) cells and the PNN cells, and
+  print their roofline table
+* ``perf``      re-run a cell under the reference's variants that change
+  what one card computes
 * ``serve``     LM serving: prefill + greedy decode of a reduced config
+* ``train``     LM training: the train step of ``lm.steps`` in the
+  fault-tolerant loop, checkpoints in the reference's layout
 
-The other LM launchers (``train``, the LM cells of ``dryrun`` and
-``perf``) wait for ROADMAP.md A6c/A7; the TPU pod meshes of
-``launch/mesh.py`` have no counterpart on one card.
+The TPU pod meshes of ``launch/mesh.py`` have no counterpart on one card.
 """

@@ -1,6 +1,7 @@
 """Roofline terms of one step measured on one card.
 
-compute term    = counted FLOPs / peak float32 FLOP/s
+compute term    = counted FLOPs / peak FLOP/s (float32; bfloat16 for an LM
+                  cell whose activations are bfloat16)
 memory term     = counted bytes / HBM bytes/s
 collective term = collective wire bytes / NVLink bytes/s (0 on one card)
 
@@ -22,13 +23,17 @@ import torch
 import torch.utils._pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.lm import model as M
+
 # NVIDIA H100 SXM published rates (NVIDIA data sheet), for the card the
 # port is measured on: "NVIDIA H100 80GB HBM3, 700.00 W" as
 # `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` reports
 # it.  The port's MLPs run in float32 with TF32 off, outside the tensor
-# cores.  One card moves no collective bytes; the NVLink rate (per
-# direction) stands for a mesh that does.
+# cores; an LM in bfloat16 runs its matmuls on them.  One card moves no
+# collective bytes; the NVLink rate (per direction) stands for a mesh
+# that does.
 PEAK_FLOPS_FP32 = 67e12       # FLOP/s
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s, dense, on the tensor cores
 HBM_BW = 3.35e12              # B/s
 NVLINK_BW = 450e9             # B/s
 
@@ -47,10 +52,11 @@ class Roofline:
     model_flops: float          # useful flops
     mem_per_device: dict
     step_s: float = 0.0         # measured: median step on the device
+    peak_flops: float = PEAK_FLOPS_FP32
 
     @property
     def t_compute(self):
-        return self.hlo_flops / PEAK_FLOPS_FP32
+        return self.hlo_flops / self.peak_flops
 
     @property
     def t_memory(self):
@@ -74,7 +80,7 @@ class Roofline:
     @property
     def roofline_fraction(self):
         """useful-FLOPs time / achievable step time (dominant term)."""
-        t_star = self.model_flops / (self.chips * PEAK_FLOPS_FP32)
+        t_star = self.model_flops / (self.chips * self.peak_flops)
         t = max(self.t_compute, self.t_memory, self.t_collective)
         return t_star / t if t else 0.0
 
@@ -130,7 +136,8 @@ class ByteCounter(TorchDispatchMode):
 
 
 def analyze(*, arch, shape, flops, nbytes, peak_bytes, argument_bytes,
-            output_bytes, step_s, model_flops, mesh_name, chips=1):
+            output_bytes, step_s, model_flops, mesh_name, chips=1,
+            peak_flops=PEAK_FLOPS_FP32):
     """A ``Roofline`` from one step's counts and measurements: ``flops``
     and ``nbytes`` counted over the step, ``peak_bytes`` the device's
     allocation peak during it, ``argument_bytes`` / ``output_bytes`` what
@@ -146,7 +153,68 @@ def analyze(*, arch, shape, flops, nbytes, peak_bytes, argument_bytes,
                     hlo_flops=float(flops), hlo_bytes=float(nbytes),
                     coll_bytes=0.0, coll_by_kind={}, coll_count={},
                     model_flops=model_flops, mem_per_device=mem,
-                    step_s=step_s)
+                    step_s=step_s, peak_flops=peak_flops)
+
+
+# ---------------------------------------------------------------------------
+# MODEL_FLOPS (useful work) estimators, over the port's LM (or the meta
+# model of ``lm.steps.eval_shape_init``)
+# ---------------------------------------------------------------------------
+
+def count_params(model) -> int:
+    """Parameters of ``model``; a shared block counts once."""
+    return sum(p.numel() for p in model.parameters())
+
+
+def active_params(cfg, model) -> float:
+    """Params touched per token: MoE experts scaled by top_k/num_experts.
+
+    The reference's rule, over its stacked tree: a leaf under ``ffn``
+    named ``wi``/``wg``/``wo`` of rank >= 3 is an expert, and a stacked
+    leaf has the reps axis in its rank.  So llama4-scout's shared expert
+    (``ffn/shared/w*/w``, rank 3 once stacked) is scaled too; the port
+    keeps the reference's number (ROADMAP.md §C)."""
+    total, expert, expert_active = 0, 0, 0
+    for path, ps in sorted(M.reference_leaves(cfg, model).items()):
+        n = sum(p.numel() for p in ps)
+        ndim = ps[0].ndim + (path[0] in M.STACKS)
+        total += n
+        if cfg.moe and "ffn" in path and any(
+                k in ("wi", "wg", "wo") for k in path) and ndim >= 3:
+            expert += n
+            expert_active += n * cfg.moe.top_k / cfg.moe.num_experts
+    return total - expert + expert_active
+
+
+def model_flops_for(cfg, shape_kind: str, seq: int, batch: int,
+                    n_active: float) -> float:
+    """Useful FLOPs of one step (global). Sliding-window (local) layers
+    only attend over min(window, context)."""
+    tokens = batch * seq
+
+    def att_ctx(kind, s):
+        if kind in ("local", "shared_attn") and cfg.window:
+            return min(cfg.window, s)
+        return s
+
+    att_kinds = [k for k in cfg.pattern
+                 if k in ("attn", "local", "moe", "shared_attn", "xattn")]
+    h_hd = cfg.n_heads * cfg.hd
+    if shape_kind == "train":
+        dense = 6.0 * n_active * tokens
+        att = sum(3.0 * 4.0 * h_hd * cfg.reps * batch * seq
+                  * (att_ctx(k, seq) / 2) for k in att_kinds)
+        return dense + att
+    if shape_kind == "prefill":
+        dense = 2.0 * n_active * tokens
+        att = sum(4.0 * h_hd * cfg.reps * batch * seq
+                  * (att_ctx(k, seq) / 2) for k in att_kinds)
+        return dense + att
+    # decode: one token per sequence in the batch
+    dense = 2.0 * n_active * batch
+    att = sum(4.0 * h_hd * cfg.reps * batch * att_ctx(k, seq)
+              for k in att_kinds)
+    return dense + att
 
 
 def format_table(rows):

@@ -1,5 +1,6 @@
-"""The LM: ``reps`` repetitions of a block ``pattern``, served by prefill
-and greedy decode.
+"""The LM: ``reps`` repetitions of a block ``pattern``: the full forward
+and loss that training differentiates (``lm/steps.py``), and prefill and
+greedy decode for serving.
 
 Counterpart of ``repro.lm.model``, for every block kind of the ten
 architectures of ``configs``: the attention kinds (``attn``, ``local``,
@@ -115,6 +116,8 @@ class LMConfig:
 
 ATTN_KINDS = ("attn", "local", "moe", "shared_attn", "xattn", "enc_attn")
 SHARED_KINDS = ("shared_attn",)
+# The reference's parameter subtrees stacked over reps (a leading axis).
+STACKS = ("scan", "enc_scan")
 
 
 class Mixer(NamedTuple):
@@ -169,9 +172,8 @@ class LM(nn.Module):
 
 
 def _check_kinds(cfg: LMConfig) -> None:
-    if cfg.frontend != "tokens":
-        raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} "
-                                  f"is not ported (no config uses it)")
+    if cfg.frontend not in ("tokens", "embeddings"):
+        raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r}")
     for kind in cfg.pattern:
         if kind not in ATTN_KINDS and kind not in MIXERS:
             raise ValueError(kind)
@@ -364,10 +366,14 @@ def encode(params: LM, cfg: LMConfig, frames):
 
 
 def _inputs(params, cfg, tokens, frames, dec_tokens):
-    """(decoder input embeddings, encoder output or None)."""
+    """(decoder input embeddings, encoder output or None).  The
+    ``embeddings`` frontend (an audio stub) feeds ``frames`` (B, S, D) to
+    the decoder as they are."""
     if cfg.encoder_layers:
         return (embed_tokens(params, cfg, dec_tokens),
                 encode(params, cfg, frames))
+    if cfg.frontend == "embeddings":
+        return lc(frames.to(cfg.act_dtype), "batch", None, "embed"), None
     return embed_tokens(params, cfg, tokens), None
 
 
@@ -506,9 +512,13 @@ def _block_decode(p, cfg: LMConfig, kind, x, cache, pos):
 
 @torch.inference_mode()
 def decode_step(params: LM, cfg: LMConfig, token, cache, pos):
-    """One decode step: token (B,1) at position ``pos``.  Returns
-    (logits (B,1,V), cache), the cache updated in place."""
-    x = embed_tokens(params, cfg, token)
+    """One decode step: token (B,1) (or (B,1,D) embeddings) at position
+    ``pos``.  Returns (logits (B,1,V), cache), the cache updated in
+    place."""
+    if cfg.frontend == "embeddings" and token.ndim == 3:
+        x = token.to(cfg.act_dtype)
+    else:
+        x = embed_tokens(params, cfg, token)
     n = len(cfg.pattern)
     for j, (kind, p) in enumerate(_layers(params.blocks, cfg.pattern)):
         rep, name = cache[j // n], f"b{j % n}_{kind}"

@@ -11,9 +11,10 @@ the reference's, in its dtypes:
   explicitly);
 * steps padded to a chunk multiple have ``dt = 0`` and log-decay 0: they
   leave the carried state as it is;
-* the intra-chunk decay ``exp(lac[l] - lac[s])`` is taken over the whole
-  (L, L) square and masked after the exp.  Above the diagonal it can
-  overflow to ``inf``; the forward selects 0 there.
+* the intra-chunk decay ``exp(lac[l] - lac[s])`` is masked to ``-inf``
+  above the diagonal before the exp (the reference masks after it, where
+  the exp overflows to ``inf`` at full width: its forward selects 0 there,
+  but its backward gives NaN).  The forward is the reference's.
 """
 from __future__ import annotations
 
@@ -110,6 +111,17 @@ def _conv_full(p: Mamba2, u, k):
     return out + p.conv_b
 
 
+def _intra_weights(cb, lac, causal):
+    """``cb`` (B,nc,L,L) times the decay ``exp(lac[l] - lac[s])`` (B,nc,L,H)
+    on and below the diagonal, 0 above.  The exponent is masked to -inf
+    before the exp: above the diagonal it is positive and overflows
+    float32 at full width, and the exp's backward would give inf * 0 =
+    NaN.  The causal entries are the reference's."""
+    decay = torch.exp(torch.where(
+        causal, lac[:, :, :, None, :] - lac[:, :, None, :, :], -torch.inf))
+    return torch.where(causal, cb[..., None] * decay, 0.0)
+
+
 def mamba2_forward(p: Mamba2, x, *, d, cfg: SSMConfig, return_state=False):
     """x (B, S, D) -> y (B, S, D) [, the state for decode]."""
     b, s, _ = x.shape
@@ -143,10 +155,9 @@ def mamba2_forward(p: Mamba2, x, *, d, cfg: SSMConfig, return_state=False):
 
     # Intra-chunk (attention-like, causal):
     cb = torch.einsum("bcln,bcsn->bcls", cmc, bmc)               # (B,nc,L,L)
-    decay = torch.exp(lac[:, :, :, None, :] - lac[:, :, None, :, :])
     causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
                                    device=x.device))[None, None, :, :, None]
-    m = torch.where(causal, cb[..., None] * decay, 0.0)          # (B,nc,L,L,H)
+    m = _intra_weights(cb, lac, causal)                           # (B,nc,L,L,H)
     m = m * dtc[:, :, None, :, :]
     y_intra = torch.einsum("bclsh,bcshp->bclhp", m, xh)
 

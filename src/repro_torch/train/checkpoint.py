@@ -11,7 +11,10 @@ a dict key or a list position is one part, so the port's training state
 ``{"params": {"stages/0/mlp/0/dense/w": ...}, "opt": {"m": ..., "v": ...,
 "step": ...}}`` writes ``params/stages/0/mlp/0/dense/w``, ``opt/m/...``,
 ``opt/v/...`` and ``opt/step``, exactly the keys the JAX trainer writes.
-A checkpoint of either package restores into the other.
+A checkpoint of either package restores into the other.  Where the JAX
+tree stacks several of the port's tensors into one leaf (an LM's layers,
+reps first), the caller's tree holds them as one ``Stacked`` leaf: saved
+as the stacked array, restored slice by slice (``lm/steps.ckpt_tree``).
 """
 from __future__ import annotations
 
@@ -25,6 +28,18 @@ import numpy as np
 import torch
 
 _SEP = "/"
+
+
+class Stacked:
+    """One checkpoint leaf made of several tensors of one shape: the JAX
+    tree's stacked leaf, whose slices along its first axis are ``parts``."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+
+    @property
+    def shape(self):
+        return (len(self.parts),) + tuple(self.parts[0].shape)
 
 
 def _leaves(tree, prefix=()):
@@ -41,6 +56,8 @@ def _leaves(tree, prefix=()):
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, Stacked):
+        return np.stack([_to_numpy(p) for p in leaf.parts])
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:   # npz has no bf16: store f32
@@ -103,7 +120,10 @@ def latest_step(ckpt_dir: str):
 
 def _like(arr: np.ndarray, like):
     """``arr`` as the kind of leaf ``like`` is: a tensor of its dtype on its
-    device, or a Python scalar (the optimizer's step)."""
+    device, a ``Stacked`` of such tensors, or a Python scalar (the
+    optimizer's step)."""
+    if isinstance(like, Stacked):
+        return Stacked(_like(a, p) for a, p in zip(arr, like.parts))
     if isinstance(like, torch.Tensor):
         return torch.from_numpy(np.array(arr)).to(like.device, like.dtype)
     return type(like)(arr)
@@ -120,9 +140,10 @@ def _rebuild(like, flat, prefix=()):
     if key not in flat:
         raise KeyError(f"checkpoint missing {key}")
     arr = flat[key]
-    if tuple(arr.shape) != tuple(np.shape(like)):
+    want = like.shape if isinstance(like, Stacked) else np.shape(like)
+    if tuple(arr.shape) != tuple(want):
         raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
-                         f"{tuple(np.shape(like))}")
+                         f"{tuple(want)}")
     return _like(arr, like)
 
 
@@ -136,6 +157,22 @@ def restore(ckpt_dir: str, step: int, like_tree):
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     return _rebuild(like_tree, flat), manifest
+
+
+@torch.no_grad()
+def assign(dst, src) -> None:
+    """Copy the tensors of ``src`` into the tensors of ``dst``, a tree of
+    the same structure, in place; leaves that are no tensors are left."""
+    if isinstance(dst, dict):
+        for k, sub in dst.items():
+            assign(sub, src[k])
+    elif isinstance(dst, (list, tuple)):
+        for a, b in zip(dst, src):
+            assign(a, b)
+    elif isinstance(dst, Stacked):
+        assign(dst.parts, src.parts)
+    elif isinstance(dst, torch.Tensor):
+        dst.copy_(src)
 
 
 class AsyncCheckpointer:

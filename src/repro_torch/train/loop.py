@@ -7,7 +7,10 @@ checkpoint is copied into those same tensors, so a model whose parameters
 they are sees it.  With ``grad_compression`` set, each step's gradients go
 through ``repro_torch.dist.compression``'s error feedback (keyed by
 ``(seed, step)``) before AdamW, as the reference does on any number of
-devices; the residual is not checkpointed.
+devices; the residual is not checkpointed.  A checkpoint holds
+``ckpt_tree(params, opt_state)``, by default ``{"params": params, "opt":
+opt_state}``; the LM's tree stacks its layers as the reference does
+(``lm/steps.ckpt_tree``).
 """
 from __future__ import annotations
 
@@ -34,15 +37,10 @@ class LoopConfig:
     seed: int = 0
 
 
-@torch.no_grad()
-def _assign(dst: dict, src: dict) -> None:
-    for k, t in dst.items():
-        t.copy_(src[k])
-
-
 def run(loop_cfg: LoopConfig, *, init_params: Callable,
         train_step: Callable, next_batch: Callable, opt_cfg=None,
-        params=None, log: Callable = print, fail_at: int | None = None):
+        params=None, log: Callable = print, fail_at: int | None = None,
+        ckpt_tree: Callable | None = None, decay=None):
     """Restore the latest checkpoint if there is one, train to
     ``total_steps``, checkpoint asynchronously, record stragglers.
 
@@ -50,13 +48,18 @@ def run(loop_cfg: LoopConfig, *, init_params: Callable,
     metrics)`` with ``metrics["loss"]`` a scalar tensor, and, when
     ``grad_compression`` is set, ``train_step(params, opt_state, batch,
     return_grads=True) -> (grads, metrics)``; ``fail_at`` injects a crash
-    (fault-tolerance tests).  Each step is timed up to the read of its
-    loss, which waits for everything the step queued on the card.  Returns
-    (params, opt_state, {"history", "monitor"})."""
+    (fault-tolerance tests).  ``ckpt_tree(params, opt_state)`` is the tree
+    a checkpoint holds, its leaves the live tensors (or
+    ``checkpoint.Stacked`` groups of them), so a restore copies into them;
+    ``decay`` goes to ``optimizer.update`` on the error-feedback path
+    (``train_step`` applies its own).  Each step is timed up to the read
+    of its loss, which waits for everything the step queued on the card.
+    Returns (params, opt_state, {"history", "monitor"})."""
     opt_cfg = opt_cfg or opt_lib.OptConfig(total_steps=loop_cfg.total_steps)
     if params is None:
         params = init_params()
     opt_state = opt_lib.init(params)
+    ckpt_tree = ckpt_tree or (lambda p, o: {"params": p, "opt": o})
     start_step = 0
     saver = (ckpt_lib.AsyncCheckpointer(loop_cfg.ckpt_dir, loop_cfg.keep)
              if loop_cfg.ckpt_dir else None)
@@ -64,11 +67,9 @@ def run(loop_cfg: LoopConfig, *, init_params: Callable,
                 if loop_cfg.grad_compression != "none" else None)
 
     if saver and (last := ckpt_lib.latest_step(loop_cfg.ckpt_dir)) is not None:
-        state, manifest = ckpt_lib.restore(
-            loop_cfg.ckpt_dir, last, {"params": params, "opt": opt_state})
-        _assign(params, state["params"])
-        _assign(opt_state["m"], state["opt"]["m"])
-        _assign(opt_state["v"], state["opt"]["v"])
+        live = ckpt_tree(params, opt_state)
+        state, manifest = ckpt_lib.restore(loop_cfg.ckpt_dir, last, live)
+        ckpt_lib.assign(live, state)
         opt_state["step"] = state["opt"]["step"]
         start_step = manifest["extra"].get("next_step", last)
         log(f"[loop] restored step {last}, resuming at {start_step}")
@@ -89,7 +90,8 @@ def run(loop_cfg: LoopConfig, *, init_params: Callable,
                 grads, residual, loop_cfg.grad_compression,
                 (loop_cfg.seed, step))
             params, opt_state, om = opt_lib.update(opt_cfg, grads,
-                                                   opt_state, params)
+                                                   opt_state, params,
+                                                   decay=decay)
             metrics = {**metrics, **om}
         else:
             params, opt_state, metrics = train_step(params, opt_state, batch)
@@ -102,11 +104,10 @@ def run(loop_cfg: LoopConfig, *, init_params: Callable,
             log(f"[loop] step {step} loss {loss:.4f} "
                 f"({dt*1e3:.0f} ms{' STRAGGLER' if straggler else ''})")
         if saver and step and step % loop_cfg.ckpt_every == 0:
-            saver.save(step, {"params": params, "opt": opt_state},
+            saver.save(step, ckpt_tree(params, opt_state),
                        extra={"next_step": step + 1})
     if saver:
-        saver.save(loop_cfg.total_steps,
-                   {"params": params, "opt": opt_state},
+        saver.save(loop_cfg.total_steps, ckpt_tree(params, opt_state),
                    extra={"next_step": loop_cfg.total_steps})
         saver.wait()
     return params, opt_state, {"history": history,

@@ -4,7 +4,10 @@ Counterpart of ``repro.train.optimizer``, written as a short update over a
 dict of tensors rather than ``torch.optim.AdamW``, so that it follows the
 JAX package step for step: ``b2 = 0.95``; the schedule is read at the
 1-based step; the clip scale is ``min(1, clip / (norm + 1e-9))``; decoupled
-weight decay applies only to parameters with ``ndim >= 2``.  The state is
+weight decay applies only to parameters with ``ndim >= 2`` in the JAX tree.
+Where the port holds a stacked JAX leaf as one tensor a layer (the LM), the
+rank differs, and the caller names the decayed parameters (``decay``).
+The state is
 ``{"m": {name: tensor}, "v": {name: tensor}, "step": int}``, the JAX
 state's ``{"m", "v", "step"}`` with the parameter tree flattened to
 ``/``-joined paths, so checkpoints of the two packages line up.
@@ -56,10 +59,13 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(cfg: OptConfig, grads: dict, opt_state: dict, params: dict):
+def update(cfg: OptConfig, grads: dict, opt_state: dict, params: dict,
+           decay=None):
     """One AdamW step over ``params`` ({name: tensor}) with ``grads`` of the
-    same names, in place.  Returns ``(params, opt_state, {"lr",
-    "grad_norm"})``; the norm stays on the device (no host sync)."""
+    same names, in place.  ``decay`` is the set of names that take weight
+    decay; ``None`` decays the parameters with ``ndim >= 2``.  Returns
+    ``(params, opt_state, {"lr", "grad_norm"})``; the norm stays on the
+    device (no host sync)."""
     step = opt_state["step"] + 1
     lr = schedule(cfg, step)
     gnorm = global_norm(grads.values())
@@ -72,7 +78,7 @@ def update(cfg: OptConfig, grads: dict, opt_state: dict, params: dict):
         m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
         v.mul_(cfg.b2).add_(g * g, alpha=1 - cfg.b2)
         delta = (m / c1) / ((v / c2).sqrt() + cfg.eps)
-        if p.ndim >= 2:  # decoupled weight decay on matrices only
+        if (p.ndim >= 2 if decay is None else k in decay):
             delta = delta + cfg.weight_decay * p.float()
         p.copy_((p.float() - lr * delta).to(p.dtype))
     opt_state["step"] = step

@@ -99,9 +99,9 @@ def spy_updates(monkeypatch, module, seen: list, to_dict):
     ``module.update`` receives, then run it."""
     real = module.update
 
-    def update(cfg, grads, state, params):
+    def update(cfg, grads, state, params, **kw):
         seen.append(to_dict(grads))
-        return real(cfg, grads, state, params)
+        return real(cfg, grads, state, params, **kw)
     monkeypatch.setattr(module, "update", update)
 
 
