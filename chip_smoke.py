@@ -125,7 +125,25 @@ of which raises on failure:
    rerun to 12 (a resume at step 10), 5 steps with int8 compression; and
    four LM cells through ``launch.dryrun.run_cell``: smollm-135m x
    train_4k, prefill_32k (batch 1) and decode_32k, zamba2-7b x long_500k,
-   each row with its cuts.
+   each row with its cuts;
+16. (run right after phase 10) the thin clients of
+   ``repro_torch.examples``, each through its ``main`` on the card, each
+   returned dict one JSON line, with every kernel's launches around each
+   client: quickstart as the reference runs it, its integers equal to
+   its own run on the CPU, mean count and recall within 1e-6; serve_pnn,
+   24 requests of PointNeXt at its published widths through buckets
+   4096/16384/65536 (microbatch 4, th=256): every answer of its shape,
+   one build per plan-cache key, the four serving kernels launched;
+   segment_scene at 289,000 points (tile_points 16384): each point owned
+   once, finite logits, points/s and peak device memory; train_pointnet,
+   300 steps of 16 x 1024 points (th=64) with BPPO and with the global
+   ops (finite losses, the mean of the last 5 logged losses below the
+   first 5), then the BPPO run again on its checkpoint (resumed at step
+   300, the same final accuracy), and both accuracies with their gap
+   beside the paper's < 0.7 % (not gated: 128 eval clouds); the LM smoke
+   (smollm-135m reduced, 60 steps, int8): finite losses, each within
+   1e-3 of the same client's run on the CPU, and its rerun (resumed at
+   step 60).
 
 It then prints a ``{"kernels": [...]}`` line and, last, the device line.
 Without a CUDA card it exits non-zero and prints no result.
@@ -167,6 +185,30 @@ CELLS = (("pointnext", "pnn_289k", "serve", None),
          ("pointnext", "pnn_1m", "serve", 1))
 CELL_PARITY_N = 4096
 SLEEP_CYCLES_PER_S = 2.0e9   # at or above the H100's SM clock (1.98 GHz)
+# The thin clients (phase_examples): serving PointNeXt at its published
+# widths on the buckets of phases 4-6; the scene client at the 289k points
+# of the PNN cells; train_pointnet at pointnet2_cls's own n and th, the
+# full size of benchmarks/accuracy.py, with the reference's 8 x 16 final
+# eval clouds; the LM smoke as the reference runs it, with int8.
+EX_REQUESTS = 24
+EX_SERVE = ["--buckets", ",".join(map(str, BUCKETS)), "--requests",
+            str(EX_REQUESTS), "--microbatch", str(MICROBATCH), "--variant",
+            "pointnext", "--th", str(TH)]
+EX_SCENE = ["--n", str(N_289K), "--tile-points", "16384", "--microbatch",
+            str(MICROBATCH)]
+EX_TRAIN_STEPS = 300
+EX_TRAIN = ["--steps", str(EX_TRAIN_STEPS), "--batch", "16", "--n-points",
+            "1024", "--th", "64"]
+EX_EVAL_CLOUDS = 8 * 16
+EX_LM_STEPS = 60
+EX_LM = ["--arch", "smollm-135m", "--steps", str(EX_LM_STEPS),
+         "--compression", "int8"]
+QUICKSTART_TOL = 1e-6   # mean count and recall, card vs CPU
+# The LM smoke's per-step losses, card vs CPU (float32; int8 codec with the
+# same hashed uniforms on both).  Its loss stays at ln(512) over 60 steps,
+# in the reference's own run as in the port's, so a falling loss is not
+# asked for.
+LM_SMOKE_TOL = 1e-3
 LOGIT_TOL = 1e-3      # card vs CPU: float32 matmuls sum in another order
 LOGIT_SHARE = 0.999   # share of points within LOGIT_TOL
 
@@ -832,6 +874,111 @@ def phase_scene(params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The thin clients (repro_torch.examples).
+# ---------------------------------------------------------------------------
+
+def run_client(name: str, argv: list) -> tuple[dict, dict]:
+    """``repro_torch.examples.<name>.main(argv)`` with every kernel's launch
+    count read around it; logs the returned dict as one JSON line."""
+    import importlib
+    from repro_torch.kernels import ops
+    main = importlib.import_module(f"repro_torch.examples.{name}").main
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    out = main(argv)
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+    log(f"example {name} {' '.join(argv)}: {wall:.1f} s, launches "
+        f"{launches}")
+    log(json.dumps({"example": name, "argv": argv, "client_s": wall, **out},
+                   default=str))
+    return out, launches
+
+
+def phase_examples() -> dict:
+    """Each client of ``repro_torch.examples`` through its ``main`` on the
+    card: quickstart against its own run on the CPU; serve_pnn and
+    segment_scene at the sizes of EX_SERVE / EX_SCENE; train_pointnet with
+    BPPO and with the global ops (and a resume of the BPPO run); the LM
+    smoke and its rerun.  Returns {client: its launches}."""
+    import tempfile
+    launches = {}
+    card, launches["quickstart"] = run_client("quickstart", [])
+    cpu, _ = run_client("quickstart", ["--device", "cpu"])
+    ints = [k for k, v in card.items() if isinstance(v, int)]
+    if any(card[k] != cpu[k] for k in ints) or any(
+            abs(card[k] - cpu[k]) > QUICKSTART_TOL
+            for k in ("mean_cnt", "recall")):
+        raise AssertionError(f"quickstart: card {card} vs CPU {cpu}")
+    log(f"quickstart: card == CPU on {ints}; mean count and recall within "
+        f"{QUICKSTART_TOL}")
+
+    rep, launches["serve_pnn"] = run_client("serve_pnn", EX_SERVE)
+    idle = [k for k in SERVING if rep["launches"][k] == 0]
+    if rep["served"] != EX_REQUESTS or not rep["one_trace_per_key"] or idle:
+        raise AssertionError(f"serve_pnn: served {rep['served']}, one trace "
+                             f"per key {rep['one_trace_per_key']}, kernels "
+                             f"not launched {idle}")
+
+    sc, launches["segment_scene"] = run_client("segment_scene", EX_SCENE)
+    if not (sc["owned_once"] and sc["finite"]):
+        raise AssertionError(f"segment_scene: owned once {sc['owned_once']},"
+                             f" finite logits {sc['finite']}")
+
+    acc = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        for ops_ in ("bppo", "global"):
+            extra = ["--ckpt", ckpt] if ops_ == "bppo" else []
+            tr, launches[f"train_pointnet {ops_}"] = run_client(
+                "train_pointnet", EX_TRAIN + ["--point-ops", ops_, *extra])
+            logged = [r["loss"] for r in tr["logged"]]
+            hold_losses(logged, f"train_pointnet {ops_} (logged losses)",
+                        steps=len(range(0, EX_TRAIN_STEPS, 25)))
+            if not np.isfinite(tr["losses"]).all():
+                raise AssertionError(f"train_pointnet {ops_}: a loss is not "
+                                     f"finite")
+            acc[ops_] = tr["final_accuracy"]
+        again, _ = run_client("train_pointnet",
+                              EX_TRAIN + ["--point-ops", "bppo", "--ckpt",
+                                          ckpt])
+    if (again["resumed_from"], again["losses"]) != (EX_TRAIN_STEPS, []) or \
+            again["final_accuracy"] != acc["bppo"]:
+        raise AssertionError(f"train_pointnet resume: from "
+                             f"{again['resumed_from']}, accuracy "
+                             f"{again['final_accuracy']} vs {acc['bppo']}")
+    gap = acc["global"] - acc["bppo"]
+    log(f"accuracy (Fig. 14): BPPO {acc['bppo']:.4f}, global "
+        f"{acc['global']:.4f}, gap (global - BPPO) {gap * 100:+.2f} points "
+        f"beside the paper's < 0.7 %; not gated: "
+        f"{EX_EVAL_CLOUDS} eval clouds, a step of "
+        f"{100 / EX_EVAL_CLOUDS:.2f} points")
+
+    with tempfile.TemporaryDirectory() as ckpt, \
+            tempfile.TemporaryDirectory() as cpu_ckpt:
+        lm, launches["lm_pretrain_smoke"] = run_client(
+            "lm_pretrain_smoke", EX_LM + ["--ckpt", ckpt])
+        cpu_lm, _ = run_client("lm_pretrain_smoke",
+                               EX_LM + ["--ckpt", cpu_ckpt, "--device", "cpu"])
+        rerun, _ = run_client("lm_pretrain_smoke", EX_LM + ["--ckpt", ckpt])
+    card_l, cpu_l = np.asarray(lm["losses"]), np.asarray(cpu_lm["losses"])
+    if card_l.shape != (EX_LM_STEPS,) or cpu_l.shape != card_l.shape or \
+            not np.isfinite(card_l).all():
+        raise AssertionError(f"lm_pretrain_smoke: losses {card_l}")
+    worst = float(np.abs(card_l - cpu_l).max())
+    log(f"lm_pretrain_smoke: {EX_LM_STEPS} losses, card vs CPU max |d| "
+        f"{worst:.3g} (limit {LM_SMOKE_TOL}); mean loss, first 5 steps "
+        f"{card_l[:5].mean():.4f}, last 5 {card_l[-5:].mean():.4f} "
+        f"(not gated: the reference's own run stays at ln(vocab))")
+    if worst > LM_SMOKE_TOL:
+        raise AssertionError("lm_pretrain_smoke: card and CPU losses differ")
+    if (rerun["resumed_from"], rerun["steps_run"]) != (EX_LM_STEPS, 0):
+        raise AssertionError(f"lm_pretrain_smoke rerun: resumed from "
+                             f"{rerun['resumed_from']}, ran "
+                             f"{rerun['steps_run']} steps")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Training.
 # ---------------------------------------------------------------------------
 
@@ -915,10 +1062,10 @@ def phase_train():
     return cfg, model, state, launches, statistics.median(dts)
 
 
-def hold_losses(losses, title: str) -> None:
-    """TRAIN_STEPS finite losses whose last 5 average below their first 5,
+def hold_losses(losses, title: str, steps: int = TRAIN_STEPS) -> None:
+    """``steps`` finite losses whose last 5 average below their first 5,
     or raise."""
-    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+    if len(losses) != steps or not np.isfinite(losses).all():
         raise AssertionError(f"{title}: bad losses {losses}")
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
     log(f"{title}: mean loss, first 5 steps {first:.4f}, last 5 steps "
@@ -1674,6 +1821,7 @@ def main() -> int:
     phase_global(engine)
     scene_launches = phase_scene(engine.params)
     del engine
+    example_launches = phase_examples()
     phase_grad_parity(PARITY_N, 1)
     phase_grad_parity(TRAIN_N, TRAIN_BATCH)
     cfg, model, state, train_launches, plain_ms = phase_train()
@@ -1710,7 +1858,8 @@ def main() -> int:
         f"fractal_level_blocks is on no path); launches on the other paths, "
         f"each read around its own run: the compressed trainings "
         f"{compressed}, the PNN cells' timed steps {cells}, the 1M scene's "
-        f"inference {scene_launches}; card: {smi}; total "
+        f"inference {scene_launches}, the thin clients' runs "
+        f"{example_launches}; card: {smi}; total "
         f"{time.monotonic() - t_start:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -36,12 +36,18 @@ from repro_torch.train import optimizer as opt_lib
 
 def make_batch(cfg, seed: int, step: int, batch: int, seq: int,
                device=None) -> dict:
-    """The batch of ``step``: tokens uniform over the vocabulary from a CPU
-    generator seeded by ``(seed + 7, step)``, labels ``(tokens * 7 +
-    position) % vocab`` (the reference's rule), ``frames`` (normal, x 0.1)
-    for an encoder-decoder or the embeddings frontend; moved to
-    ``device``."""
+    """The batch of ``step``: ``draw_batch`` from a CPU generator seeded by
+    ``(seed + 7, step)``, moved to ``device``."""
     gen = torch.Generator().manual_seed(((seed + 7) << 32) + step)
+    return draw_batch(cfg, gen, batch, seq, device)
+
+
+def draw_batch(cfg, gen: torch.Generator, batch: int, seq: int,
+               device=None) -> dict:
+    """Tokens uniform over the vocabulary drawn from ``gen``, labels
+    ``(tokens * 7 + position) % vocab`` (the reference's rule), ``frames``
+    (normal, x 0.1) for an encoder-decoder or the embeddings frontend;
+    moved to ``device``."""
     toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen)
     out = {"labels": (toks * 7 + torch.arange(seq)[None, :]) % cfg.vocab}
     if cfg.encoder_layers or cfg.frontend == "embeddings":
