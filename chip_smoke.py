@@ -143,7 +143,17 @@ of which raises on failure:
    beside the paper's < 0.7 % (not gated: 128 eval clouds); the LM smoke
    (smollm-135m reduced, 60 steps, int8): finite losses, each within
    1e-3 of the same client's run on the CPU, and its rerun (resumed at
-   step 60).
+   step 60);
+17. the multi-card PNN path (``repro_torch.launch.mesh_smoke``), one
+   process a card under ``python -m torch.distributed.run`` over NCCL, on
+   every card of the machine (one card: a (1, 1) mesh; four: (2, 2), and
+   (4, 1) where ``MESH_MODEL_AXES`` asks): 8 PointNeXt requests through
+   buckets 4096/16384 on the mesh against the same engine without one on
+   each rank's card (the serving rule), the four serving kernels launched
+   on every rank; 5 steps of pointnet2_seg at 8 x 16384, plain and int8,
+   losses within 1e-4 of the one-card run, the parameters bit for bit the
+   same on every rank; a 289,000-point scene, each point owned once, the
+   same logits on every rank.  Any rank's failure fails the phase.
 
 It then prints a ``{"kernels": [...]}`` line and, last, the device line.
 Without a CUDA card it exits non-zero and prints no result.
@@ -151,6 +161,8 @@ Without a CUDA card it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -272,6 +284,8 @@ LM_CELLS = (("smollm-135m", "train_4k", None),
             ("smollm-135m", "decode_32k", None),
             ("zamba2-7b", "long_500k", None))
 LM_CELL_REPS = 2
+MESH_MODEL_AXES = (2,)   # the reference's default; (1, 2) for (4, 1) too
+MESH_TIMEOUT_S = 600
 LM_SERVE = (("smollm-135m", 8, 512, 64, None),
             ("gemma2-2b", 1, 8192, 32, None),
             ("granite-moe-3b-a800m", 8, 512, 64, None),
@@ -1788,6 +1802,65 @@ def phase_lm_cells() -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The multi-card PNN path (phase 17).
+# ---------------------------------------------------------------------------
+
+def phase_mesh(model_axes=MESH_MODEL_AXES, measure: bool = False) -> list:
+    """``repro_torch.launch.mesh_smoke`` under torchrun, one process a card
+    of this machine, once per model axis (``measure``: with the numbers
+    PERF.md keeps); its ranks check themselves and rank 0 prints
+    ``MESH_RESULT``.  A rank's failure, or a run past ``MESH_TIMEOUT_S``
+    (its process group is killed), raises.  Returns the results."""
+    import torch
+    torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    rows = []
+    for m in model_axes:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc-per-node={n}", "-m", "repro_torch.launch.mesh_smoke",
+               "--model-axis", str(m)] + (["--measure"] if measure else [])
+        t0 = time.monotonic()
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=MESH_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, _ = proc.communicate()
+            log(out[-4000:])
+            raise AssertionError(f"mesh run on {n} cards (model axis {m}) "
+                                 f"past {MESH_TIMEOUT_S} s")
+        wall = time.monotonic() - t0
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("MESH_RESULT ")]
+        if proc.returncode != 0 or not lines:
+            log(out[-6000:])
+            raise AssertionError(f"mesh run on {n} cards (model axis {m}) "
+                                 f"exited {proc.returncode}")
+        res = json.loads(lines[-1][len("MESH_RESULT "):])
+        sv, tr, sc = res["serving"], res["training"], res["scene"]
+        log(f"mesh {res['mesh']} over {res['world']} {res['backend']} "
+            f"ranks ({res['card']}), {wall:.1f} s with the start: serving "
+            f"{sv['requests']} requests, {sv['rule']['over']} of "
+            f"{sv['rule']['points']} points over {LOGIT_TOL} against one "
+            f"card (max |d| {sv['rule']['max_abs']:.3g}); training losses "
+            f"max |d| {tr['none']['max_abs']:.3g} plain, "
+            f"{tr['int8']['max_abs']:.3g} int8 against one card, "
+            f"parameters identical on every rank; {sc['points']}-point "
+            f"scene in {sc['infer_s']:.2f} s on every rank alike; launches "
+            f"on rank 0: serving {sv['launches'][0]}, training "
+            f"{tr['none']['launches'][0]}")
+        log("MESH " + json.dumps(res))
+        rows.append(res)
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1839,6 +1912,7 @@ def main() -> int:
     phase_lm_train_grads()
     phase_lm_train()
     phase_lm_cells()
+    phase_mesh()
 
     kernels = []
     for name in REPLACES:

@@ -7,6 +7,13 @@ compaction index math, plain tensor ops here) around an *execute* step
 that goes through ``kernels.ops``: the kernels see the ``B * ML`` leaf
 blocks of all clouds at once, so each launches once per stage.
 
+Under a mesh (``dist.logical``) the leaf blocks go to ranks over
+``"blocks"`` (the paper's block parallelism, at the reference's ``lc``
+points): each kernel call takes this rank's share of the blocks
+(``logical.shard``) and its outputs are all-gathered (``unshard``), so
+every rank continues with the whole; each leaf's result depends on that
+leaf only, so the split leaves the outputs as they were.
+
 All ops work in the permuted (DFT) frame: indices index ``part.coords``;
 map back with ``part.perm``.  JAX's dropped out-of-range scatter writes go
 to one sink slot past the end, which is then sliced off; where JAX relied
@@ -20,6 +27,7 @@ import torch
 
 from repro_torch.core.fractal import (FractalPartition, leaf_from, leaf_view,
                                       subtree_slot_range, take, window_from)
+from repro_torch.dist.logical import shard, unshard
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.common import INF, f32_square
 
@@ -59,6 +67,17 @@ def _flat(x, lead=2):
     return x.reshape(-1, *x.shape[lead:])
 
 
+def _on_blocks(kernel, *blocks):
+    """``kernel`` on this rank's share of the leaf blocks (the leading axis
+    of every argument, "blocks" over the mesh), its outputs all-gathered
+    back to every block."""
+    nb = blocks[0].shape[0]
+    out = kernel(*(shard(x, 0, "blocks") for x in blocks))
+    if isinstance(out, tuple):
+        return tuple(unshard(o, 0, "blocks", nb) for o in out)
+    return unshard(out, 0, "blocks", nb)
+
+
 def _scatter_rows(size, fill, pos, src):
     """out (B, size, ...) = fill; out[b, pos[b, i]] = src[b, i] for pos <
     size; positions >= size are dropped (through a sink row)."""
@@ -85,7 +104,8 @@ def blockwise_fps(part: FractalPartition, *, rate: float, k_out: int,
     quota = torch.round(part.leaf_vsize.to(torch.float32) * rate)
     quota = torch.where(part.is_leaf, quota.clamp(max=kbm), 0).long()
 
-    local = kops.fps_blocks(_flat(pts), _flat(mask), k=kbm).reshape(b, ml, kbm)
+    local = _on_blocks(lambda p, m: kops.fps_blocks(p, m, k=kbm), _flat(pts),
+                       _flat(mask)).reshape(b, ml, kbm)
     j = torch.arange(kbm, device=dev)
     bmask = j < quota[..., None]
     gidx = (part.leaf_start[..., None].long() + local).clamp(0, n - 1)
@@ -136,9 +156,9 @@ def _bq_slice(part, sl, *, r2, radius, num, w):
     win, wmask, widx = window_from(ls, lv, ps, pv, il, part.coords,
                                    part.valid, w)
     centers = take(part.coords, gidx)
-    lidx, nd2, cnt = kops.ball_query_blocks(
-        _flat(centers), _flat(bmask), _flat(win), _flat(wmask),
-        radius=radius, num=num)
+    lidx, nd2, cnt = _on_blocks(
+        lambda *a: kops.ball_query_blocks(*a, radius=radius, num=num),
+        _flat(centers), _flat(bmask), _flat(win), _flat(wmask))
     lidx = lidx.reshape(b, c, kbm, num)
     nd2 = nd2.reshape(b, c, kbm, num).clamp(min=0.0)  # expanded form can
     cnt = cnt.reshape(b, c, kbm)                      # cancel below 0
@@ -167,8 +187,8 @@ def _knn_slice(part, sl, *, k, w):
     win, wmask, widx = window_from(ls, lv, ps, pv, il, part.coords,
                                    part.valid, w)
     centers = take(part.coords, gidx)
-    lidx, nd2 = kops.knn_blocks(_flat(centers), _flat(win), _flat(wmask),
-                                k=k)
+    lidx, nd2 = _on_blocks(lambda *a: kops.knn_blocks(*a, k=k),
+                           _flat(centers), _flat(win), _flat(wmask))
     lidx = lidx.reshape(b, c, kbm, k)
     nd2 = nd2.reshape(b, c, kbm, k)
     ok = (nd2 < INF) & bmask[..., None]
@@ -236,7 +256,8 @@ def _interp_slice(part, samp, feats, sl, *, wc, bs, eps):
     cpts = take(samp.coords, cidx)                          # (B, c, wc, 3)
 
     fine, fmask, fidx = leaf_from(ls, lv, il, part.coords, bs)
-    nidx, nd2 = kops.knn_blocks(_flat(fine), _flat(cpts), _flat(cmask), k=3)
+    nidx, nd2 = _on_blocks(lambda *a: kops.knn_blocks(*a, k=3), _flat(fine),
+                           _flat(cpts), _flat(cmask))
     nidx = nidx.reshape(b, c, bs, 3)
     nd2 = nd2.reshape(b, c, bs, 3).clamp(min=0.0)
     ok = nd2 < INF
@@ -246,8 +267,8 @@ def _interp_slice(part, samp, feats, sl, *, wc, bs, eps):
     samp_idx = torch.gather(cidx[:, :, None, :].expand(b, c, bs, wc), -1,
                             nidx.long())                    # into samples
     cf = feats.shape[-1]
-    vals = kops.gather_blocks(_flat(take(feats, cidx)),
-                              nidx.reshape(b * c, bs * 3))
+    vals = _on_blocks(kops.gather_blocks, _flat(take(feats, cidx)),
+                      nidx.reshape(b * c, bs * 3))
     vals = vals.reshape(b, c, bs, 3, cf)
     blended = (vals * wgt[..., None]).sum(-2)               # (B, c, bs, C)
     flat_pos = torch.where(fmask, fidx, n).reshape(b, -1)

@@ -1,10 +1,11 @@
-"""Logical axis -> mesh axis rules (MaxText-style), on one card.
+"""Logical axis -> mesh axis rules (MaxText-style), and the shards they
+give on a mesh of processes.
 
-Counterpart of ``repro.dist.logical``.  Every tensor dimension in the LM
-code is named once with a *logical* axis ("batch", "ff", "kv_seq", ...);
-a rules dict maps logical names to mesh axes, ``logical_rules`` activates
-(mesh, rules) for a region of code, and ``lc`` applies the resulting
-constraint to a value.
+Counterpart of ``repro.dist.logical``.  Every tensor dimension in the
+model code is named once with a *logical* axis ("batch", "blocks", "ff",
+...); a rules dict maps logical names to mesh axes, ``logical_rules``
+activates (mesh, rules) for a region of code, and ``lc`` applies the
+resulting constraint to a value.
 
 The resolution is the reference's, exactly:
 
@@ -16,12 +17,18 @@ The resolution is the reference's, exactly:
 
 The port has no ``jax.sharding``: ``P``, ``Mesh`` and ``NamedSharding``
 below are small stand-ins with the same fields (``P`` compares as jax's
-``PartitionSpec`` does).  On one card the mesh is (1, 1) and every
-constraint is satisfied by the tensor as it lies, so ``lc`` checks the
-rank and returns its input.  A mesh of more than one device is refused
-(``NotImplementedError``): several cards are not part of this round of
-the port (ROADMAP.md).  Outside a ``logical_rules`` context ``lc`` is the
-identity and ``spec`` gives ``P()``.
+``PartitionSpec`` does).  Eager PyTorch has no sharding propagation, so
+the layouts GSPMD gives the reference implicitly are explicit here:
+``shard(x, dim, name)`` is this rank's slice of ``dim`` along the mesh
+axes ``name`` maps to, and ``unshard(y, dim, name, size)`` all-gathers it
+back.  Both follow ``fit_specs``' rule: where the device count does not
+divide the dim, the tensor stays whole on every rank.  A mesh made by
+``elastic.make_mesh`` is laid over the ranks of the process world
+(``dist/process.py``) and holds one process group for each combination
+of its axes; ``lc`` keeps a tensor as it lies (its rank checked), and
+refuses only a stand-in mesh of several devices that no process world
+backs.  Outside a ``logical_rules`` context ``lc``, ``shard`` and
+``unshard`` are the identity and ``spec`` gives ``P()``.
 """
 from __future__ import annotations
 
@@ -29,6 +36,8 @@ import contextlib
 import threading
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 # Key order is rule priority (an earlier name wins a contested mesh axis).
 RULES_V0 = {
@@ -96,9 +105,16 @@ class P(tuple):
 
 class Mesh:
     """Devices laid out on named axes: ``devices`` is a numpy object array
-    of ``torch.device`` with one dimension per name in ``axis_names``."""
+    of ``torch.device`` with one dimension per name in ``axis_names``.
 
-    def __init__(self, devices, axis_names):
+    A mesh over the process world (``elastic.make_mesh``) also has
+    ``ranks``, the world rank at each position, ``world`` (this process's
+    ``process.World``) and ``groups``: for each combination of axes with
+    more than one device (axes in mesh order), this rank's process group
+    along them and its index in it.  A stand-in has none of them."""
+
+    def __init__(self, devices, axis_names, ranks=None, world=None,
+                 groups=None):
         devices = np.asarray(devices, dtype=object)
         axis_names = tuple(axis_names)
         if devices.ndim != len(axis_names):
@@ -106,10 +122,37 @@ class Mesh:
                              f"names {axis_names}")
         self.devices = devices
         self.axis_names = axis_names
+        self.ranks = None if ranks is None else np.asarray(ranks)
+        self.world = world
+        self.groups = dict(groups or {})
 
     @property
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def device(self):
+        """This process's device on the mesh."""
+        if self.world is not None:
+            return self.world.device
+        return self.devices.flat[0]
+
+    def group(self, axes):
+        """(process group, this rank's index in it) along ``axes`` (any
+        order), or None where those axes hold one device."""
+        axes = tuple(axes)
+        key = tuple(a for a in self.axis_names if a in axes)
+        size = 1
+        for a in key:
+            size *= self.shape[a]
+        if size == 1:
+            return None
+        if key not in self.groups:
+            raise ValueError(f"a mesh of {self.devices.size} devices that "
+                             f"is not laid over the process world "
+                             f"(elastic.make_mesh): it has no group along "
+                             f"{key} and can hold no shard")
+        return self.groups[key]
 
     def __repr__(self):
         return f"Mesh({self.shape})"
@@ -163,6 +206,14 @@ def logical_rules(mesh, rules):
         yield stack[-1]
     finally:
         stack.pop()
+
+
+def mesh_rules(mesh):
+    """``logical_rules(mesh, RULES_V0)``, or no context where ``mesh`` is
+    None (one card without a mesh)."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return logical_rules(mesh, RULES_V0)
 
 
 def _axis_to_mesh(ctx: _Ctx, axis, used=None):
@@ -222,19 +273,108 @@ def lc(x, *axes):
     """Logical constraint: ``lc(x, "batch", None, "ff")``.
 
     The identity outside a context.  Inside one it checks that there is one
-    name a dim; on the one-card mesh the tensor already satisfies any
-    spec, so it is returned as it is."""
+    name a dim and returns ``x`` as it lies: what a rank holds is made
+    explicit by ``shard`` / ``unshard``.  A stand-in mesh of several
+    devices, which no process world backs, is refused."""
     ctx = current()
     if ctx is None:
         return x
     if len(axes) != x.ndim:
         raise ValueError(f"lc: {len(axes)} axis names for rank-{x.ndim} "
                          f"value {tuple(getattr(x, 'shape', ()))}: {axes}")
-    if ctx.mesh.devices.size > 1:
-        raise NotImplementedError(
-            f"lc: a mesh of {ctx.mesh.devices.size} devices; the port runs "
-            f"on one card in this round (ROADMAP.md)")
+    if ctx.mesh.devices.size > 1 and ctx.mesh.world is None:
+        raise ValueError(
+            f"lc: a stand-in mesh of {ctx.mesh.devices.size} devices; a "
+            f"mesh of several comes from elastic.make_mesh over the "
+            f"process world")
     return x
+
+
+def placement(name: str, size: int):
+    """Where a dim of ``size`` named ``name`` lies on the active mesh:
+    None where every rank holds it whole (outside a context, one device
+    along its mesh axes, or a device count that does not divide ``size``:
+    ``fit_specs``' rule), else (process group, ways, this rank's index)."""
+    ctx = current()
+    if ctx is None:
+        return None
+    entry = _axis_to_mesh(ctx, name)
+    ways = _entry_size(ctx.mesh_sizes, entry)
+    if ways == 1 or size % ways:
+        return None
+    group, index = ctx.mesh.group((entry,) if isinstance(entry, str)
+                                  else entry)
+    return group, ways, index
+
+
+def _all_gather(y, dim, group, ways):
+    parts = [torch.empty_like(y) for _ in range(ways)]
+    dist.all_gather(parts, y.contiguous(), group=group)
+    return torch.cat(parts, dim)
+
+
+def _slice(x, dim, ways, index):
+    n = x.shape[dim] // ways
+    return x.narrow(dim, index * n, n)
+
+
+class _Shard(torch.autograd.Function):
+    """Forward: this rank's slice.  Backward: the slices' gradients
+    all-gathered, so every rank holds the whole gradient of the whole
+    input, as each holds the whole input."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, ways, index):
+        ctx.args = (dim, group, ways)
+        return _slice(x, dim, ways, index).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, ways = ctx.args
+        return _all_gather(g, dim, group, ways), None, None, None, None
+
+
+class _Unshard(torch.autograd.Function):
+    """Forward: the ranks' slices all-gathered.  Backward: this rank's
+    slice of the gradient: every rank consumes the whole output alike, so
+    each holds the whole gradient, and its own slice is its share (an
+    all-gather whose backward reduce-scatters would count it ``ways``
+    times)."""
+
+    @staticmethod
+    def forward(ctx, y, dim, group, ways, index):
+        ctx.args = (dim, ways, index)
+        return _all_gather(y, dim, group, ways)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, ways, index = ctx.args
+        return (_slice(g, dim, ways, index).contiguous(), None, None, None,
+                None)
+
+
+def shard(x, dim: int, name: str):
+    """This rank's slice of ``x`` along ``dim`` over the mesh axes that
+    logical axis ``name`` maps to; ``x`` itself where it stays whole
+    (``placement``).  Differentiable: the backward all-gathers."""
+    where = placement(name, x.shape[dim])
+    if where is None:
+        return x
+    if not x.requires_grad:
+        return _slice(x, dim, where[1], where[2])
+    return _Shard.apply(x, dim, *where)
+
+
+def unshard(y, dim: int, name: str, size: int):
+    """The whole of a ``dim`` of ``size`` that ``shard`` cut: ``y``, this
+    rank's slice, all-gathered over the same axes; ``y`` itself where the
+    dim stayed whole.  Differentiable: the backward takes this rank's
+    slice."""
+    where = placement(name, size)
+    if where is None:
+        return y
+    return _Unshard.apply(y, dim, *where)
 
 
 def _entry_size(mesh_sizes, entry) -> int:

@@ -24,15 +24,17 @@ import torch
 from repro_torch import scene
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
+from repro_torch.dist import elastic, process
 
 
 def run(coords, labels, cfg: scene.SceneConfig, *, params=None,
-        seed: int = 0, device=None, log=print) -> dict:
+        seed: int = 0, device=None, log=print, mesh=None) -> dict:
     """Warm a ``SceneEngine`` for ``cfg`` (weights ``params``, else drawn
-    from ``seed``), segment the (n, 3) scene ``coords`` (numpy, or a
-    tensor on any device) and compare the argmax with ``labels``.
-    Returns the printed numbers."""
-    eng = scene.SceneEngine(cfg, params=params, seed=seed, device=device)
+    from ``seed``; on ``mesh`` where given), segment the (n, 3) scene
+    ``coords`` (numpy, or a tensor on any device) and compare the argmax
+    with ``labels``.  Returns the printed numbers."""
+    eng = scene.SceneEngine(cfg, params=params, seed=seed, device=device,
+                            mesh=mesh)
     on_card = eng.device.type == "cuda"
     t0 = time.monotonic()
     compile_s = eng.warm()
@@ -92,6 +94,9 @@ def parse(argv=None) -> argparse.Namespace:
     ap.add_argument("--microbatch", type=int, default=4)
     ap.add_argument("--variant", default="pointnet2",
                     choices=["pointnet2", "pointnext", "pointvector"])
+    ap.add_argument("--mesh", default="none", choices=["none", "auto"],
+                    help="auto: shard tile microbatches over the process "
+                         "world's (data, model) mesh (under torchrun)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' runs the plain "
@@ -102,20 +107,25 @@ def parse(argv=None) -> argparse.Namespace:
 def config(args: argparse.Namespace) -> scene.SceneConfig:
     return scene.SceneConfig(
         tile_points=args.tile_points, halo=args.halo, th=args.th,
-        microbatch=args.microbatch, variant=args.variant)
+        microbatch=args.microbatch, variant=args.variant, mesh=args.mesh)
 
 
 def main(argv=None) -> dict:
+    """Segment the scene; returns the numbers printed (rank 0 prints)."""
     args = parse(argv)
-    device = resolve_device(args.device)
+    cfg = config(args)
+    mesh = (elastic.make_mesh(model_axis=cfg.model_axis, device=args.device)
+            if cfg.mesh == "auto" else None)
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    log = process.log_of(None if mesh is None else mesh.world)
     t0 = time.monotonic()
     coords, labels = synthetic.scene(args.seed, args.n, device=device)
     labels = labels.cpu()
     gen_s = time.monotonic() - t0
-    print(f"scene: {args.n} points, {len(torch.unique(labels))} shape "
-          f"classes ({gen_s:.1f}s to generate)")
-    return {"generate_s": gen_s, **run(coords, labels, config(args),
-                                        seed=args.seed, device=device)}
+    log(f"scene: {args.n} points, {len(torch.unique(labels))} shape "
+        f"classes ({gen_s:.1f}s to generate)")
+    return {"generate_s": gen_s, **run(coords, labels, cfg, seed=args.seed,
+                                        device=device, log=log, mesh=mesh)}
 
 
 if __name__ == "__main__":

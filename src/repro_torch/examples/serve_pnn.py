@@ -23,18 +23,21 @@ import torch
 from repro_torch import serve
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
+from repro_torch.dist import elastic, process
 from repro_torch.kernels import ops
 
 
 def run(cfg: serve.ServeConfig, clouds, *, params=None, seed: int = 0,
-        device=None, log=print):
+        device=None, log=print, mesh=None):
     """Warm an engine for ``cfg`` (weights ``params``, else drawn from
-    ``seed``), then serve ``clouds`` (an iterable of (n, 3) arrays, read
-    one request at a time) in order: submit, dispatch what is ready, and
-    flush at the end.  Every answer must be ``(n, num_classes)``.
+    ``seed``; on ``mesh`` where given), then serve ``clouds`` (an iterable
+    of (n, 3) arrays, read one request at a time) in order: submit,
+    dispatch what is ready, and flush at the end.  Every answer must be
+    ``(n, num_classes)``.
 
     Returns (the printed numbers, the logits in request order)."""
-    engine = serve.ServeEngine(cfg, params=params, seed=seed, device=device)
+    engine = serve.ServeEngine(cfg, params=params, seed=seed, device=device,
+                               mesh=mesh)
     on_card = engine.device.type == "cuda"
     compile_s = engine.warm()
     log(f"warmed {len(compile_s)} buckets ({cfg.point_ops} point ops, "
@@ -69,6 +72,7 @@ def run(cfg: serve.ServeConfig, clouds, *, params=None, seed: int = 0,
     st = engine.stats()
     pc = st["plan_cache"]
     report = {"warm_s": dict(compile_s), "served": st["served"],
+              "world_size": st["world_size"], "mesh": st["mesh"],
               "wall_s": st["wall_s"], "clouds_per_s": st["clouds_per_s"],
               "mpts_per_s": st["mpts_per_s"],
               "buckets": {b: {k: row[k] for k in
@@ -83,7 +87,9 @@ def run(cfg: serve.ServeConfig, clouds, *, params=None, seed: int = 0,
     else:
         log(f"served {st['served']} clouds in {st['wall_s']:.2f}s: "
             f"{st['clouds_per_s']:.2f} clouds/s "
-            f"({st['mpts_per_s']:.3g} Mpts/s)")
+            f"({st['mpts_per_s']:.3g} Mpts/s)"
+            + (f" on mesh {st['mesh']} of {st['world_size']} ranks"
+               if st["mesh"] else ""))
     for b, row in report["buckets"].items():
         log(f"  bucket n={b}: {row['count']} clouds, "
             f"p50 {row['p50_ms']:.1f} / p95 {row['p95_ms']:.1f} / "
@@ -111,6 +117,9 @@ def parse(argv=None) -> argparse.Namespace:
                     choices=["pointnet2", "pointnext", "pointvector"])
     ap.add_argument("--point-ops", default="bppo",
                     choices=["bppo", "global"])
+    ap.add_argument("--mesh", default="none", choices=["none", "auto"],
+                    help="auto: shard microbatches over the process "
+                         "world's (data, model) mesh (under torchrun)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' runs the plain "
@@ -122,17 +131,22 @@ def config(args: argparse.Namespace) -> serve.ServeConfig:
     return serve.ServeConfig(
         buckets=tuple(int(b) for b in args.buckets.split(",")),
         microbatch=args.microbatch, max_wait_s=args.max_wait_ms / 1e3,
-        variant=args.variant, th=args.th, point_ops=args.point_ops)
+        variant=args.variant, th=args.th, point_ops=args.point_ops,
+        mesh=args.mesh)
 
 
 def main(argv=None) -> dict:
+    """Serve the stream; returns the numbers printed (rank 0 prints)."""
     args = parse(argv)
-    device = resolve_device(args.device)
     cfg = config(args)
+    mesh = (elastic.make_mesh(model_axis=cfg.model_axis, device=args.device)
+            if cfg.mesh == "auto" else None)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     sizes = serve.mixed_request_sizes(cfg.buckets, args.requests, args.seed)
     clouds = (synthetic.segmentation_batch(args.seed, r, 1, n)[0][0].numpy()
               for r, n in enumerate(sizes))
-    report, _ = run(cfg, clouds, seed=args.seed, device=device)
+    report, _ = run(cfg, clouds, seed=args.seed, device=device, mesh=mesh,
+                    log=process.log_of(None if mesh is None else mesh.world))
     return report
 
 

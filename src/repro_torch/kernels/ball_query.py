@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (INF, argmin_extract, f32_square,
-                                        on_card, require, sqdist_rows)
+                                        launching_on, on_card, require,
+                                        sqdist_rows)
 
 
 def ball_query_plain(centers, cmask, window, wmask, *, radius: float,
@@ -52,11 +53,11 @@ def ball_query_blocks(centers, cmask, window, wmask, *, radius: float,
     cnt = torch.empty((nb, kc), dtype=torch.int32, device=dev)
     if nb == 0 or kc == 0:
         return idx, d2, cnt
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _build.library().fc_ball_query_blocks(
-        centers.data_ptr(), cmask.data_ptr(), window.data_ptr(),
-        wmask.data_ptr(), idx.data_ptr(), d2.data_ptr(), cnt.data_ptr(),
-        nb, kc, w, num, float(radius) ** 2, stream)
+    with launching_on(centers) as stream:
+        err = _build.library().fc_ball_query_blocks(
+            centers.data_ptr(), cmask.data_ptr(), window.data_ptr(),
+            wmask.data_ptr(), idx.data_ptr(), d2.data_ptr(), cnt.data_ptr(),
+            nb, kc, w, num, float(radius) ** 2, stream)
     _build.check(err, "ball_query_blocks")
     ball_query_blocks.launches += 1
     return idx, d2, cnt

@@ -18,6 +18,8 @@ the JAX package's ``argmin_extract``.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -44,6 +46,15 @@ def on_card(*tensors: torch.Tensor) -> bool:
         return False
     raise ValueError(f"tensors must all lie on the CPU or all on the card, "
                      f"got {sorted(kinds)}")
+
+
+@contextlib.contextmanager
+def launching_on(t: torch.Tensor):
+    """The device guard of a launch: ``t``'s card is current for the call
+    (the launchers read ``cudaGetDevice``) and the handle of that card's
+    current stream is yielded, whichever card the process has current."""
+    with torch.cuda.device(t.device):
+        yield torch.cuda.current_stream(t.device).cuda_stream
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -15,8 +15,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import (NEG, argmax_first, on_card, require,
-                                        sqnorm)
+from repro_torch.kernels.common import (NEG, argmax_first, launching_on,
+                                        on_card, require, sqnorm)
 
 WARP_LANES = 512        # widest block one warp takes (16 points a lane)
 REGISTER_LANES = 8192   # widest block whose min-d^2 stays in registers
@@ -80,8 +80,8 @@ def fps_blocks(coords: torch.Tensor, mask: torch.Tensor, *, k: int):
 def launch(lib, coords: torch.Tensor, mask: torch.Tensor,
            idx: torch.Tensor, kind: str | None = None) -> int:
     """Launch ``kind`` (by default ``variant`` of this width) from the
-    library ``lib`` into ``idx`` (NB, k) on the current stream; returns the
-    CUDA error code."""
+    library ``lib`` into ``idx`` (NB, k) on the current stream of the
+    coordinates' card; returns the CUDA error code."""
     nb, bs = mask.shape
     v = kind or variant(bs)
     ptrs = [coords.data_ptr(), mask.data_ptr(), idx.data_ptr()]
@@ -89,8 +89,8 @@ def launch(lib, coords: torch.Tensor, mask: torch.Tensor,
         scratch = torch.empty((nb, bs), dtype=torch.float32,
                               device=coords.device)
         ptrs.append(scratch.data_ptr())
-    return getattr(lib, ENTRIES[v])(*ptrs, nb, bs, idx.shape[1],
-                                    torch.cuda.current_stream().cuda_stream)
+    with launching_on(coords) as stream:
+        return getattr(lib, ENTRIES[v])(*ptrs, nb, bs, idx.shape[1], stream)
 
 
 fps_blocks.launches = 0

@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import INF, NEG, on_card, require
+from repro_torch.kernels.common import (INF, NEG, launching_on, on_card,
+                                        require)
 
 
 def fractal_level_plain(coords: torch.Tensor, mask: torch.Tensor,
@@ -58,10 +59,11 @@ def fractal_level_blocks(coords: torch.Tensor, mask: torch.Tensor,
     stats = torch.empty((nb, 4), dtype=torch.float32, device=dev)
     if nb == 0:
         return side, lcnt, stats
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _build.library().fc_fractal_level_blocks(
-        coords.data_ptr(), mask.data_ptr(), mid.data_ptr(), side.data_ptr(),
-        lcnt.data_ptr(), stats.data_ptr(), nb, bs, da, db, stream)
+    with launching_on(coords) as stream:
+        err = _build.library().fc_fractal_level_blocks(
+            coords.data_ptr(), mask.data_ptr(), mid.data_ptr(),
+            side.data_ptr(), lcnt.data_ptr(), stats.data_ptr(), nb, bs, da,
+            db, stream)
     _build.check(err, "fractal_level_blocks")
     fractal_level_blocks.launches += 1
     return side, lcnt, stats

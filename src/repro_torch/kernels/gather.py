@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import on_card, require
+from repro_torch.kernels.common import launching_on, on_card, require
 
 
 def gather_plain(window_feats: torch.Tensor, idx: torch.Tensor):
@@ -40,10 +40,10 @@ def gather_blocks(window_feats: torch.Tensor, idx: torch.Tensor):
                       device=window_feats.device)
     if nb == 0 or m == 0 or c == 0:
         return out
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _build.library().fc_gather_blocks(
-        window_feats.data_ptr(), idx.data_ptr(), out.data_ptr(), nb, w, c, m,
-        stream)
+    with launching_on(window_feats) as stream:
+        err = _build.library().fc_gather_blocks(
+            window_feats.data_ptr(), idx.data_ptr(), out.data_ptr(), nb, w,
+            c, m, stream)
     _build.check(err, "gather_blocks")
     gather_blocks.launches += 1
     return out
@@ -84,9 +84,9 @@ def scatter_add_blocks(g: torch.Tensor, idx: torch.Tensor, *, w: int):
     out = torch.empty((nb, w, c), dtype=torch.float32, device=g.device)
     if nb == 0 or w == 0 or c == 0:
         return out
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _build.library().fc_scatter_add_blocks(
-        g.data_ptr(), idx.data_ptr(), out.data_ptr(), nb, m, c, w, stream)
+    with launching_on(g) as stream:
+        err = _build.library().fc_scatter_add_blocks(
+            g.data_ptr(), idx.data_ptr(), out.data_ptr(), nb, m, c, w, stream)
     _build.check(err, "scatter_add_blocks")
     scatter_add_blocks.launches += 1
     return out

@@ -9,8 +9,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import (INF, argmin_extract, on_card,
-                                        require, sqdist_rows)
+from repro_torch.kernels.common import (INF, argmin_extract,
+                                        launching_on, on_card, require,
+                                        sqdist_rows)
 
 
 def knn_plain(queries, window, wmask, *, k: int):
@@ -38,10 +39,10 @@ def knn_blocks(queries, window, wmask, *, k: int):
     d2 = torch.empty((nb, q, k), dtype=torch.float32, device=dev)
     if nb == 0 or q == 0:
         return idx, d2
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _build.library().fc_knn_blocks(
-        queries.data_ptr(), window.data_ptr(), wmask.data_ptr(),
-        idx.data_ptr(), d2.data_ptr(), nb, q, w, k, stream)
+    with launching_on(queries) as stream:
+        err = _build.library().fc_knn_blocks(
+            queries.data_ptr(), window.data_ptr(), wmask.data_ptr(),
+            idx.data_ptr(), d2.data_ptr(), nb, q, w, k, stream)
     _build.check(err, "knn_blocks")
     knn_blocks.launches += 1
     return idx, d2

@@ -1,5 +1,4 @@
-"""repro_torch.launch: the cells and launchers of ``repro.launch`` on one
-card.
+"""repro_torch.launch: the cells and launchers of ``repro.launch``.
 
 * ``pnn_cell``  run a serving or fine-tune step at S3DIS scale (33K / 289K
   / 1M points) and report its time, peak memory and roofline row
@@ -13,5 +12,9 @@ card.
 * ``train``     LM training: the train step of ``lm.steps`` in the
   fault-tolerant loop, checkpoints in the reference's layout
 
-The TPU pod meshes of ``launch/mesh.py`` have no counterpart on one card.
+* ``mesh``      ``make_host_mesh``: the (data, model) mesh over the cards
+  of one host, one process a card under torchrun (the reference's TPU pod
+  meshes have no counterpart)
+* ``mesh_smoke``  the multi-card PNN path checked end to end under
+  torchrun (``chip_smoke.py`` phase 17)
 """

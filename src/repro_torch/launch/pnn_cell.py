@@ -1,4 +1,4 @@
-"""PNN cells: the paper's own workloads, run on one card.
+"""PNN cells: the paper's own workloads, run on one card or a mesh.
 
 Counterpart of ``repro.launch.pnn_cell``, which lowers and compiles these
 cells on a 256-chip TPU mesh; here the step *runs*.  By default a cell is
@@ -22,6 +22,14 @@ reference's that a probe at batch 1 says stays under ``MEM_LIMIT``
     from repro_torch.launch.pnn_cell import run_pnn_cell
     run_pnn_cell("pointnext", "pnn_289k")                 # on the card
     run_pnn_cell("pointnext", "pnn_33k", kind="train")
+
+With ``mesh`` (``launch.mesh.make_host_mesh()`` under torchrun, one process
+a card) the cell's batch goes over "data" of the host mesh where it
+divides it, as the reference's cell puts it over the production mesh, and
+the leaf blocks over "model": each rank steps on its share (a serving
+step's logits stay sharded, as the reference's ``out_shardings``; a
+training step all-reduces its gradient, ``train.pnn.mean_over_batch``),
+and the row names the mesh and its chips.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
+from repro_torch.dist import logical
 from repro_torch.kernels import checks, ops
 from repro_torch.launch import roofline as rl
 from repro_torch.models import pnn
@@ -103,23 +112,25 @@ class Cell:
     kind: str
     cfg: pnn.PNNConfig
     model: pnn.PNN
-    batch: dict                  # {"points", "labels"}
+    batch: dict                  # {"points", "labels"}, this rank's share
     device: torch.device
     step: Callable
+    local_batch: int             # the clouds this rank steps on
 
 
 def make_cell(variant: str, shape: str | PNNShape, *, batch: int | None = None,
               kind: str = "serve", leaf_chunk: int | None = 512,
               point_ops: str = "bppo", device=None,
-              params: pnn.PNN | None = None) -> Cell:
+              params: pnn.PNN | None = None, mesh=None) -> Cell:
     """Build a cell: the variant's segmentation config at ``shape`` (a name
     of ``PNN_SHAPES`` or a ``PNNShape``), weights ``params`` (moved to the
     device and, for ``kind="train"``, trained in place) or seeded random
     ones (seed 0), and a batch of ``data/synthetic.py`` scenes (seed 11,
-    step 0, as ``train.pnn.fit`` draws its first)."""
+    step 0, as ``train.pnn.fit`` draws its first); on ``mesh``, this
+    rank's share of it."""
     if kind not in ("serve", "train"):
         raise ValueError(f"kind must be 'serve' or 'train', got {kind!r}")
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh.device
     shape = PNN_SHAPES[shape] if isinstance(shape, str) else shape
     if batch is not None:
         shape = dataclasses.replace(shape, batch=batch)
@@ -130,20 +141,26 @@ def make_cell(variant: str, shape: str | PNNShape, *, batch: int | None = None,
         cfg, torch.Generator().manual_seed(0))).to(device)
     pts, labels = synthetic.segmentation_batch(11, 0, shape.batch,
                                                shape.n_points, device=device)
-    data = {"points": pts, "labels": labels}
+    with logical.mesh_rules(mesh):
+        pts = logical.shard(pts, 0, "batch")
+        data = {"points": pts, "labels": logical.shard(labels, 0, "batch")}
     if kind == "serve":
         def step():
-            with torch.inference_mode():
+            with torch.inference_mode(), logical.mesh_rules(mesh):
                 return pnn.apply(model, cfg, pts)
     else:
-        train_step = train.make_train_step(model, cfg,
-                                           opt_lib.OptConfig(warmup=0))
+        train_step = train.make_train_step(
+            model, cfg, opt_lib.OptConfig(warmup=0),
+            reduce=None if mesh is None else
+            lambda g, m: train.mean_over_batch(g, m, shape.batch))
         params_d = train.param_dict(model)
         state = opt_lib.init(params_d)
 
         def step():
-            return train_step(params_d, state, data)[2]
-    return Cell(variant, shape, kind, cfg, model, data, device, step)
+            with logical.mesh_rules(mesh):
+                return train_step(params_d, state, data)[2]
+    return Cell(variant, shape, kind, cfg, model, data, device, step,
+                pts.shape[0])
 
 
 def _sync(device):
@@ -177,7 +194,7 @@ def _check(cell: Cell, out) -> None:
     """Serving logits of the expected shape, all finite; a finite training
     loss; or raise."""
     if cell.kind == "serve":
-        want = (cell.shape.batch, cell.shape.n_points, cell.cfg.num_classes)
+        want = (cell.local_batch, cell.shape.n_points, cell.cfg.num_classes)
         ok = tuple(out.shape) == want and bool(torch.isfinite(out).all())
     else:
         ok = bool(torch.isfinite(out["loss"]))
@@ -250,7 +267,7 @@ def run_pnn_cell(variant: str, shape: str | PNNShape, *,
                  batch: int | None = None, kind: str = "serve",
                  leaf_chunk: int | None = 512, point_ops: str = "bppo",
                  device=None, verbose: bool = True,
-                 reps: int = REPS) -> dict:
+                 reps: int = REPS, mesh=None) -> dict:
     """Run one cell and return its row: the roofline terms
     (``Roofline.to_dict``) and ``kind``, ``batch``, ``ref_batch``,
     ``warm_s`` (the first call, the kernels' build included when it is the
@@ -259,12 +276,18 @@ def run_pnn_cell(variant: str, shape: str | PNNShape, *,
     calls), ``kernel_calls`` and ``held`` of the counted step (``count``),
     ``device`` and the probe of ``fit_batch`` where the batch was fitted
     (on the card, given no batch).  On the CPU, times are the host's,
-    memory is not measured (NaN) and nothing is launched."""
+    memory is not measured (NaN) and nothing is launched.  On ``mesh``
+    each rank runs its share and reports its own counts and times, and
+    the caller names the batch: a probe on one card does not say what
+    fits a shard."""
     t0 = time.monotonic()
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     shape = PNN_SHAPES[shape] if isinstance(shape, str) else shape
-    kw = dict(leaf_chunk=leaf_chunk, point_ops=point_ops, device=dev)
+    kw = dict(leaf_chunk=leaf_chunk, point_ops=point_ops, device=dev,
+              mesh=mesh)
     probe = None
+    if mesh is not None and batch is None:
+        raise ValueError("a cell on a mesh needs its batch named")
     if batch is None and dev.type == "cuda":
         batch, probe = fit_batch(variant, shape, kind=kind, **kw)
     cell = make_cell(variant, shape, batch=batch, kind=kind, **kw)
@@ -295,9 +318,12 @@ def run_pnn_cell(variant: str, shape: str | PNNShape, *,
         argument_bytes=argument_bytes if cuda else float("nan"),
         output_bytes=output_bytes, step_s=statistics.median(times),
         model_flops=_model_flops(cell.cfg, n, b, kind=kind),
-        mesh_name=f"1x{dev.type}")
+        mesh_name=(f"1x{dev.type}" if mesh is None else
+                   "x".join(map(str, mesh.devices.shape))),
+        chips=1 if mesh is None else mesh.devices.size)
     d = row.to_dict()
-    d.update({"kind": kind, "batch": b, "ref_batch": shape.batch,
+    d.update({"kind": kind, "batch": b, "local_batch": cell.local_batch,
+              "ref_batch": shape.batch,
               "warm_s": warm_s, "steps_s": times, "total_s":
               time.monotonic() - t0, "launches": launches,
               "kernel_calls": counts["kernel_calls"], "held": counts["held"],

@@ -1,6 +1,6 @@
 """Scene executor: stream tiles through the bucketed serving engine.
 
-Counterpart of ``repro.scene.executor`` on one card.  A ``SceneEngine``
+Counterpart of ``repro.scene.executor``.  A ``SceneEngine``
 owns a ``serve.ServeEngine`` and drives it with tiles instead of user
 requests: each tile cloud (owned points + halo ring) is admitted to its
 minimal shape bucket, packed into fixed microbatches and run by the
@@ -8,12 +8,19 @@ per-bucket cached forward.  Two scene-specific twists:
 
 * every tile carries ``dim0 = tile.depth % 3``, so the partition plan
   re-derives the tile's global subtree;
-* results are drained after every submit (``step()``) and stitched by the
-  owner-tile rule, so what lives at once is one microbatch of tile tensors
-  plus the (n, num_classes) output.
+* a microbatch is dispatched as soon as a bucket has a full one
+  (``step()``), its results drained and stitched by the owner-tile rule,
+  so what lives at once is one microbatch of tile tensors plus the (n,
+  num_classes) output.  The executor never waits on a deadline, so it
+  calls ``step()`` only when a bucket is full: on a mesh every ``step()``
+  is a collective (rank 0's queue decides), and the calls that could
+  dispatch nothing would only make the ranks wait for each other.
 
-The JAX engine's ``mesh``, ``model_axis`` and ``impl`` are not carried
-over: one card, and the kernels follow the device.
+``mesh`` and ``model_axis`` go to the serving engine, as in the
+reference: under torchrun every rank tiles and stitches the whole scene
+on its host and serves its share of each microbatch's tiles, so every
+rank's stitched logits are the same.  The reference's ``impl`` is not
+carried over: the kernels follow the device.
 """
 from __future__ import annotations
 
@@ -24,7 +31,6 @@ import torch
 
 from repro_torch import serve
 from repro_torch.core import fractal
-from repro_torch.device import resolve_device
 from repro_torch.scene import stitch as _stitch
 from repro_torch.scene import tiler as _tiler
 
@@ -49,6 +55,8 @@ class SceneConfig:
     strategy: str = "fractal"
     point_ops: str = "bppo"        # bppo | global (global: no plan/dim0)
     leaf_chunk: int | None = None
+    mesh: str = "none"             # none | auto (the process world's mesh)
+    model_axis: int = 2
     stages: tuple | None = None    # override model stages (e.g. the
     fp_widths: tuple | None = None  # single-SA-stage scene_seg config)
 
@@ -61,17 +69,17 @@ class SceneConfig:
 
 class SceneEngine:
     """Tile -> halo -> serve -> stitch for one model on one device
-    (``device=None``: the card, raising where there is none)."""
+    (``device=None``: the card, raising where there is none), or on every
+    rank of a mesh (``mesh``, else ``cfg.mesh="auto"``)."""
 
     def __init__(self, cfg: SceneConfig, params=None, seed: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         if cfg.tile_points <= cfg.th:
             raise ValueError(
                 f"tile_points ({cfg.tile_points}) must exceed the model "
                 f"block threshold th ({cfg.th}): tiles are re-partitioned "
                 f"into th-point blocks")
         self.cfg = cfg
-        self.device = resolve_device(device)
         top = cfg.max_tile_cloud()
         buckets = cfg.buckets or (max(top // 2, 1), top)
         self.serve_cfg = serve.ServeConfig(
@@ -81,9 +89,11 @@ class SceneEngine:
             max_wait_s=3600.0, variant=cfg.variant, task="seg",
             num_classes=cfg.num_classes, th=cfg.th, strategy=cfg.strategy,
             point_ops=cfg.point_ops, leaf_chunk=cfg.leaf_chunk,
-            stages=cfg.stages, fp_widths=cfg.fp_widths)
+            mesh=cfg.mesh, model_axis=cfg.model_axis, stages=cfg.stages,
+            fp_widths=cfg.fp_widths)
         self.engine = serve.ServeEngine(self.serve_cfg, params=params,
-                                        seed=seed, device=self.device)
+                                        seed=seed, device=device, mesh=mesh)
+        self.device = self.engine.device
         self.params = self.engine.params
         self.impl = self.engine.impl
 
@@ -104,8 +114,8 @@ class SceneEngine:
         """Segment one (n, 3) scene (numpy, or a tensor on any device);
         returns ((n, num_classes) float32 numpy logits, ScenePlan).
 
-        Tiles stream through the serve queue: completed microbatches are
-        drained after every submit, so no more than one microbatch of
+        Tiles stream through the serve queue: each full microbatch runs
+        and is drained as it forms, so no more than one microbatch of
         padded tile tensors plus the output live at once."""
         if plan is None:
             plan = self.plan(coords)
@@ -133,10 +143,13 @@ class SceneEngine:
                 seen += _stitch.stitch_tile(logits, tile,
                                             self.engine.take(rid))
 
+        queue = self.engine.queue
         for tile in plan.tiles:
             rid = self.engine.submit(host[tile.indices], dim0=tile.dim0)
             rid_tid[rid] = tile.tid
-            drain(self.engine.step())
+            if any(queue.pending(b) >= queue.microbatch
+                   for b in queue.policy.buckets):
+                drain(self.engine.step())
         drain(self.engine.flush())
         if seen != plan.n:
             raise ValueError(f"tiles own {seen} points, scene has {plan.n}")

@@ -65,7 +65,9 @@ class MicroBatchQueue:
             return len(self._pending[bucket])
         return sum(len(v) for v in self._pending.values())
 
-    def _pop(self, bucket: int, k: int, deadline: bool) -> MicroBatch:
+    def pop(self, bucket: int, k: int, deadline: bool) -> MicroBatch:
+        """Take the ``k`` oldest requests of ``bucket`` as one microbatch
+        (what ``ready`` decided on another rank's queue)."""
         reqs = tuple(self._pending[bucket][:k])
         del self._pending[bucket][:k]
         return MicroBatch(bucket=bucket, requests=reqs,
@@ -76,9 +78,9 @@ class MicroBatchQueue:
         out = []
         for b, reqs in self._pending.items():
             while len(reqs) >= self.microbatch:
-                out.append(self._pop(b, self.microbatch, deadline=False))
+                out.append(self.pop(b, self.microbatch, deadline=False))
             if reqs and now - reqs[0].t_submit >= self.max_wait_s:
-                out.append(self._pop(b, len(reqs), deadline=True))
+                out.append(self.pop(b, len(reqs), deadline=True))
         return out
 
     def drain(self) -> list[MicroBatch]:
@@ -87,5 +89,5 @@ class MicroBatchQueue:
         for b, reqs in self._pending.items():
             while reqs:
                 k = min(len(reqs), self.microbatch)
-                out.append(self._pop(b, k, deadline=k < self.microbatch))
+                out.append(self.pop(b, k, deadline=k < self.microbatch))
         return out

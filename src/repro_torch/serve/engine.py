@@ -1,6 +1,6 @@
-"""The PNN serving engine on one card: admission -> queue -> plan -> forward.
+"""The PNN serving engine: admission -> queue -> plan -> forward.
 
-Counterpart of ``repro.serve.engine`` for one device:
+Counterpart of ``repro.serve.engine``:
 
 * admission pads each cloud to its minimal shape bucket (``bucketing``);
 * a per-bucket microbatch queue packs requests under a max-wait deadline
@@ -12,7 +12,16 @@ Counterpart of ``repro.serve.engine`` for one device:
   clouds and ignores ``dim0``;
 * a microbatch runs as one batched forward: the partition and every point
   op work on ``(B, n, ...)``, and each kernel launches once per stage over
-  the ``B * ML`` leaf blocks of the microbatch.
+  the ``B * ML`` leaf blocks of the microbatch;
+* with ``mesh="auto"`` (or a ``mesh``) the engine runs SPMD over the
+  ranks of the process world, one process a card: every rank runs the
+  same engine and gets the same ``submit``s, each runs the plan and the
+  forward on its share of the microbatch's clouds (``"batch"`` over the
+  data axes, where the microbatch divides them) with the leaf blocks over
+  ``"model"`` (``core/bppo.py``), and the logits are all-gathered, so
+  every rank's ``results`` are the one-card engine's.  Rank 0's queue
+  decides which microbatches are due and the others take the same ones,
+  so a clock read at another instant cannot split the ranks.
 
 The forward reads nothing back to the host.  The one sync of a microbatch
 is the copy of its logits to the host; the partition-overflow check runs
@@ -31,6 +40,7 @@ import torch
 
 from repro_torch.core import fractal
 from repro_torch.device import resolve_device
+from repro_torch.dist import elastic, logical, process
 from repro_torch.models import pnn
 from repro_torch.serve.batching import MicroBatch, MicroBatchQueue
 from repro_torch.serve.bucketing import DEFAULT_BUCKETS, BucketPolicy
@@ -51,18 +61,32 @@ class ServeConfig:
     strategy: str = "fractal"      # partition strategy (plan-cache key part)
     point_ops: str = "bppo"        # bppo | global (global: no plan/dim0)
     leaf_chunk: int | None = None
+    mesh: str = "none"             # none | auto (the process world's mesh)
+    model_axis: int = 2            # elastic mesh model-axis request
     stages: tuple | None = None    # override PNNConfig.stages
     fp_widths: tuple | None = None  # override PNNConfig.fp_widths
     on_overflow: str = "warn"      # partition overflow: warn | silent
 
 
 class ServeEngine:
-    """Shape-bucketed, plan-cached PNN serving on one device."""
+    """Shape-bucketed, plan-cached PNN serving on one card, or SPMD over a
+    mesh of cards (``mesh``, else ``cfg.mesh="auto"``: the process world's
+    elastic mesh; its device is this rank's card, or the CPU where
+    ``device="cpu"``)."""
 
     def __init__(self, cfg: ServeConfig, params: pnn.PNN | None = None,
-                 seed: int = 0, clock=time.monotonic, device=None):
+                 seed: int = 0, clock=time.monotonic, device=None,
+                 mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        if cfg.mesh not in ("none", "auto"):
+            raise ValueError(f"mesh must be 'none' or 'auto', got "
+                             f"{cfg.mesh!r}")
+        if mesh is None and cfg.mesh == "auto":
+            mesh = elastic.make_mesh(model_axis=cfg.model_axis,
+                                     device=device)
+        self.mesh = mesh
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh.device)
         # The forward's kernels follow the device: "cuda" launches the
         # hand-written kernels, "plain" runs their PyTorch versions.
         self.impl = "cuda" if self.device.type == "cuda" else "plain"
@@ -123,12 +147,17 @@ class ServeEngine:
         return self.plans.get(key, build)
 
     def _forward(self, bucket, clouds, valid, dim0):
-        """One microbatch on the device; returns (logits, partition), the
-        partition None for the global ops, which have no plan."""
-        with torch.inference_mode():
+        """One microbatch on the device; returns (logits of every cloud,
+        this rank's partition), the partition None for the global ops,
+        which have no plan."""
+        with torch.inference_mode(), logical.mesh_rules(self.mesh):
+            b = clouds.shape[0]
+            clouds, valid, dim0 = (logical.shard(t, 0, "batch")
+                                   for t in (clouds, valid, dim0))
             part = (self._plan_fn(bucket)(clouds, valid, dim0)
                     if self.cfg.point_ops == "bppo" else None)
             out = self._serve_fn(bucket)(self.params, clouds, valid, part)
+            out = logical.unshard(out, 0, "batch", b)
         return out, part
 
     # -- serving ----------------------------------------------------------
@@ -166,9 +195,22 @@ class ServeEngine:
         deadline).  Returns the completed request ids; an injected ``now``
         stamps the completions."""
         done = []
-        for mb in self.queue.ready(self._clock() if now is None else now):
+        for mb in self._due(self._clock() if now is None else now):
             done.extend(self._execute(mb, now=now))
         return done
+
+    def _due(self, now: float) -> list:
+        """The microbatches due at ``now``.  On a mesh of several ranks,
+        rank 0's queue decides and the others take the same ones from
+        theirs, which hold the same requests."""
+        world = None if self.mesh is None else self.mesh.world
+        if world is None or world.size == 1:
+            return self.queue.ready(now)
+        mbs = self.queue.ready(now) if world.rank == 0 else []
+        due = process.broadcast_object(
+            world, [(mb.bucket, len(mb.requests), mb.deadline_flush)
+                    for mb in mbs])
+        return mbs if world.rank == 0 else [self.queue.pop(*d) for d in due]
 
     def flush(self, now: float | None = None) -> list[int]:
         """Drain the queue (end of stream), deadline or not."""
@@ -215,7 +257,8 @@ class ServeEngine:
 
     def stats(self) -> dict:
         """Per-bucket latency percentiles, sustained throughput (None until
-        a completed window has positive width) and plan-cache counters."""
+        a completed window has positive width) and plan-cache counters, on
+        this rank's clock, with the world size and the mesh shape."""
         buckets = {}
         served, points = 0, 0
         wall = None
@@ -238,7 +281,10 @@ class ServeEngine:
                 "clouds_per_s": len(ls) / wall if wall is not None else None,
                 "compile_s": self.compile_s.get(b),
             }
+        world = None if self.mesh is None else self.mesh.world
         return {"impl": self.impl, "device": str(self.device),
+                "world_size": 1 if world is None else world.size,
+                "mesh": None if self.mesh is None else self.mesh.shape,
                 "served": served, "wall_s": wall,
                 "clouds_per_s": served / wall if wall is not None else None,
                 "mpts_per_s": (points / wall / 1e6

@@ -10,7 +10,10 @@ through ``repro_torch.dist.compression``'s error feedback (keyed by
 devices; the residual is not checkpointed.  A checkpoint holds
 ``ckpt_tree(params, opt_state)``, by default ``{"params": params, "opt":
 opt_state}``; the LM's tree stacks its layers as the reference does
-(``lm/steps.ckpt_tree``).
+(``lm/steps.ckpt_tree``).  In a world of several ranks (data parallel,
+``world``) every rank holds the whole state: rank 0 writes, the others
+wait at a barrier before they go past a save's end, and every rank
+restores, so a checkpoint written at one world size resumes at another.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.dist import compression
+from repro_torch.dist import compression, process
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.monitor import StepMonitor
@@ -40,7 +43,7 @@ class LoopConfig:
 def run(loop_cfg: LoopConfig, *, init_params: Callable,
         train_step: Callable, next_batch: Callable, opt_cfg=None,
         params=None, log: Callable = print, fail_at: int | None = None,
-        ckpt_tree: Callable | None = None, decay=None):
+        ckpt_tree: Callable | None = None, decay=None, world=None):
     """Restore the latest checkpoint if there is one, train to
     ``total_steps``, checkpoint asynchronously, record stragglers.
 
@@ -52,7 +55,9 @@ def run(loop_cfg: LoopConfig, *, init_params: Callable,
     a checkpoint holds, its leaves the live tensors (or
     ``checkpoint.Stacked`` groups of them), so a restore copies into them;
     ``decay`` goes to ``optimizer.update`` on the error-feedback path
-    (``train_step`` applies its own).  Each step is timed up to the read
+    (``train_step`` applies its own).  ``world`` (a ``process.World``):
+    only its rank 0 writes checkpoints, and every rank waits for the last
+    write.  Each step is timed up to the read
     of its loss, which waits for everything the step queued on the card.
     Returns (params, opt_state, {"history", "monitor"})."""
     opt_cfg = opt_cfg or opt_lib.OptConfig(total_steps=loop_cfg.total_steps)
@@ -61,12 +66,14 @@ def run(loop_cfg: LoopConfig, *, init_params: Callable,
     opt_state = opt_lib.init(params)
     ckpt_tree = ckpt_tree or (lambda p, o: {"params": p, "opt": o})
     start_step = 0
+    writer = world is None or world.rank == 0
     saver = (ckpt_lib.AsyncCheckpointer(loop_cfg.ckpt_dir, loop_cfg.keep)
-             if loop_cfg.ckpt_dir else None)
+             if loop_cfg.ckpt_dir and writer else None)
     residual = (compression.init_residual(params)
                 if loop_cfg.grad_compression != "none" else None)
 
-    if saver and (last := ckpt_lib.latest_step(loop_cfg.ckpt_dir)) is not None:
+    if loop_cfg.ckpt_dir and \
+            (last := ckpt_lib.latest_step(loop_cfg.ckpt_dir)) is not None:
         live = ckpt_tree(params, opt_state)
         state, manifest = ckpt_lib.restore(loop_cfg.ckpt_dir, last, live)
         ckpt_lib.assign(live, state)
@@ -78,8 +85,7 @@ def run(loop_cfg: LoopConfig, *, init_params: Callable,
     history = []
     for step in range(start_step, loop_cfg.total_steps):
         if fail_at is not None and step == fail_at:
-            if saver:
-                saver.wait()
+            _drain(saver, world)
             raise RuntimeError(f"injected failure at step {step}")
         batch = next_batch(step)
         t0 = time.monotonic()
@@ -109,6 +115,15 @@ def run(loop_cfg: LoopConfig, *, init_params: Callable,
     if saver:
         saver.save(loop_cfg.total_steps, ckpt_tree(params, opt_state),
                    extra={"next_step": loop_cfg.total_steps})
-        saver.wait()
+    if loop_cfg.ckpt_dir:
+        _drain(saver, world)
     return params, opt_state, {"history": history,
                                "monitor": monitor.summary()}
+
+
+def _drain(saver, world) -> None:
+    """Finish rank 0's last write; the other ranks wait for it."""
+    if saver:
+        saver.wait()
+    if world is not None:
+        process.barrier(world)

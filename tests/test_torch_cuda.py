@@ -50,6 +50,29 @@ def test_kernel_matches_plain_on_the_ladder(cuda_device, name):
 
 
 @pytest.mark.cuda
+def test_kernels_launch_on_the_card_of_their_tensors(cuda_device):
+    """Each kernel on ``cuda:1`` while the process's current card is
+    ``cuda:0`` (a rank of a mesh holds another card than the one a
+    process starts with): the launch goes to the tensors' card and its
+    stream, and equals the plain version there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: launches on a card that is not the "
+                    "current one")
+    second = torch.device("cuda", 1)
+    launched = dict.fromkeys(checks.KERNELS, 0)
+    with torch.cuda.device(0):
+        for name, args in checks.ladder(second):
+            if args.get("chunk"):
+                continue
+            before = ops.KERNELS[name].launches
+            checks.hold(name, args)
+            launched[name] += ops.KERNELS[name].launches - before
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(second)
+    assert all(n > 0 for n in launched.values()), launched
+
+
+@pytest.mark.cuda
 def test_fps_exhaustion_on_the_card(cuda_device):
     c, m = checks.blocks(11, 3, 40, cuda_device, empty=1)
     m[1] = torch.arange(40, device=cuda_device) < 3

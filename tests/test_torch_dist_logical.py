@@ -160,7 +160,7 @@ def test_lc_refuses_a_mesh_of_several_devices():
                         ("data", "model"))
     with logical.logical_rules(mesh, logical.RULES_V0):
         assert logical.spec(("ff",)) == P("model")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="stand-in mesh of 2 devices"):
             logical.lc(torch.ones(4), "ff")
 
 
