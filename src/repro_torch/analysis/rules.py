@@ -25,8 +25,8 @@ from repro_torch.analysis.report import Finding
 from repro_torch.analysis.walker import SourceFile
 from repro_torch.analysis.zones import RULE_SEVERITY
 
-WALL_CLOCK_ATTRS = ("time", "monotonic", "perf_counter", "monotonic_ns",
-                    "perf_counter_ns", "process_time")
+WALL_CLOCK_ATTRS = ("time", "time_ns", "monotonic", "perf_counter",
+                    "monotonic_ns", "perf_counter_ns", "process_time")
 
 # Hashable-by-construction annotation names lru_cache parameters may carry.
 STATIC_ANNOTATIONS = ("int", "str", "bool", "float", "bytes", "tuple",
@@ -119,10 +119,10 @@ def check_clocks(src: SourceFile, active) -> list:
                 src, node, "CLK002",
                 f"time.{attr}() inside a function taking now=: use the "
                 f"injected now instead of reading the wall clock"))
-        elif attr == "time" and "CLK003" in active:
+        elif attr in ("time", "time_ns") and "CLK003" in active:
             out.append(_finding(
                 src, node, "CLK003",
-                "time.time() is not monotonic: use time.monotonic() for "
+                f"time.{attr}() is not monotonic: use time.monotonic() for "
                 "intervals, or pragma with a justification if a wall-clock "
                 "timestamp is genuinely required"))
     return out

@@ -29,9 +29,13 @@ KERNEL_OPS_PATH = "src/repro_torch/kernels/ops.py"
 # The one module outside the kernel layer that may name a device outright:
 # it is the rule every entry point resolves its device by.
 DEVICE_PATH = "src/repro_torch/device.py"
+# Zone of the telemetry registry: the span clock (Unix ns, the profiler's)
+# lives there, so the injected-clock zones never read it themselves.
+OBS = "obs"
+OBS_PATH = "src/repro_torch/obs.py"
 
 ZONES = ("core", "kernels", KERNEL_OPS, "models", "serve", "scene", "train",
-         "launch", "dist", "lm", "data", "configs", "analysis", "other")
+         "launch", "dist", "lm", "data", "configs", "analysis", OBS, "other")
 
 _ALL = frozenset(ZONES)
 _KERNELY = frozenset({"kernels", KERNEL_OPS})
@@ -58,7 +62,8 @@ RULE_SEVERITY = {rule: (WARN if rule == "CLK003" else ERROR)
 RULE_DOC = {
     "CLK001": "wall-clock call in an injected-clock zone (serve/, scene/)",
     "CLK002": "wall-clock call inside a function taking a now= parameter",
-    "CLK003": "time.time() wall clock (use time.monotonic or inject a clock)",
+    "CLK003": "time.time() or time.time_ns() wall clock (use time.monotonic "
+              "or inject a clock)",
     "TRC001": "lru_cache over parameters that are not statically hashable",
     "VJP001": "public op not routed through kernels/vjp.py "
               "(IndexProducer | Gathering)",
@@ -86,6 +91,8 @@ def zone_of(path: str, text: str = "") -> str:
     norm = str(path).replace("\\", "/")
     if norm.endswith(KERNEL_OPS_PATH):
         return KERNEL_OPS
+    if norm.endswith(OBS_PATH):
+        return OBS
     parts = norm.split("/")
     if PACKAGE in parts:
         i = len(parts) - 1 - parts[::-1].index(PACKAGE)  # last segment

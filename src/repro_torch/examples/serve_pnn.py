@@ -7,9 +7,11 @@ shape bucket, a per-bucket queue packs fixed microbatches under a max-wait
 deadline, and a plan cache keeps one partition plan per (bucket, th,
 strategy) and one forward per (bucket, device).  First-use work (the
 kernel build) happens in ``warm()``, before the stream, so reported
-latencies never include it.  On the card it also prints the peak device
-memory and each kernel's launches over the stream.  It runs on the card
-unless asked for the CPU::
+latencies never include it.  It prints the median host ms of a
+microbatch and of its plan, point-op and MLP spans (``stats()["phases"]``,
+from ``repro_torch.obs``), and on the card their device ms, the peak
+device memory and each kernel's launches over the stream.  It runs on the
+card unless asked for the CPU::
 
   PYTHONPATH=src python -m repro_torch.examples.serve_pnn \\
       [--buckets 1024,4096] [--requests 16] [--device cpu]
@@ -81,7 +83,8 @@ def run(cfg: serve.ServeConfig, clouds, *, params=None, seed: int = 0,
               "executables": pc["executables"], "hits": pc["hits"],
               "misses": pc["misses"],
               "one_trace_per_key": all(v == 1
-                                       for v in pc["traces"].values())}
+                                       for v in pc["traces"].values()),
+              "phases": st["phases"]}
     if st["clouds_per_s"] is None:   # no microbatch completed
         log(f"served {st['served']} clouds (no completed window)")
     else:
@@ -97,6 +100,11 @@ def run(cfg: serve.ServeConfig, clouds, *, params=None, seed: int = 0,
     log(f"plan cache: {pc['executables']} executables, {pc['hits']} hits, "
         f"{pc['misses']} misses (one trace per key: "
         f"{report['one_trace_per_key']})")
+    if st["phases"]:
+        log("median ms a microbatch (host / device): " + ", ".join(
+            f"{p} {v['host_ms']:.2f} / "
+            + ("-" if v["device_ms"] is None else f"{v['device_ms']:.2f}")
+            for p, v in st["phases"].items()))
     if on_card:
         report["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
         report["launches"] = launches

@@ -16,14 +16,21 @@ ops on either device, as the JAX package computes it.
 Variants: ``pointnet2`` (group -> shared MLP -> max-pool), ``pointnext``
 (+ inverted-residual MLP blocks after pooling), ``pointvector`` (learned
 per-neighbour gating before pooling).
+
+Inside a serving microbatch ``apply`` marks its phases as
+``repro_torch.obs`` spans: ``sa<i>.plan`` (a later stage's partition),
+``sa<i>.sample``, ``sa<i>.group``, ``sa<i>.mlp``, ``fp<i>.interpolate``,
+``fp<i>.mlp`` and ``head``; elsewhere they record nothing.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.core import bppo, ref
 from repro_torch.core.fractal import partition, take
 
@@ -167,38 +174,58 @@ def init(cfg: PNNConfig, generator: torch.Generator | None = None,
 # Forward.
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _sa_names(i: int) -> tuple:
+    """(plan, sample, group, mlp) span names of SA stage ``i``, made once."""
+    return tuple(f"sa{i}.{k}" for k in ("plan", "sample", "group", "mlp"))
+
+
+@functools.lru_cache(maxsize=None)
+def _fp_names(i: int) -> tuple:
+    """(interpolate, mlp) span names of FP stage ``i``, made once."""
+    return (f"fp{i}.interpolate", f"fp{i}.mlp")
+
+
 def _stage_points(cfg: PNNConfig, stage: SAStage, coords, feats, valid,
-                  n_out, part=None):
+                  n_out, *, names, part=None):
     """One sampling + grouping + gathering round over B clouds.  Returns
     (centers (B, n_out, 3), grouped (B, n_out, nsample, C+3), gmask,
-    new_valid, ctx); ``part`` optionally supplies a precomputed partition
-    of (coords, valid) -- the serving plan (bppo only)."""
+    new_valid, ctx); ``names`` are the stage's span names (``_sa_names``);
+    ``part`` optionally supplies a precomputed partition of (coords,
+    valid) -- the serving plan (bppo only)."""
+    plan_span, sample_span, group_span, _ = names
     if cfg.point_ops == "global":
-        sidx, svalid = ref.fps(coords, valid, n_out)
-        centers = take(coords, sidx)
-        nidx, cnt = ref.ball_query(coords, valid, centers, svalid,
-                                   stage.radius, stage.nsample)
-        slot = torch.arange(stage.nsample, device=coords.device)
-        gmask = slot < cnt.clamp(max=stage.nsample)[..., None]
-        gmask = gmask & svalid[..., None]
-        gmask = torch.cat([svalid[..., None], gmask[..., 1:]], -1)
-        rel = take(coords, nidx) - centers[:, :, None, :]
-        gfeats = torch.cat([rel, take(feats, nidx)], -1)
+        with obs.span(sample_span):
+            sidx, svalid = ref.fps(coords, valid, n_out)
+            centers = take(coords, sidx)
+        with obs.span(group_span):
+            nidx, cnt = ref.ball_query(coords, valid, centers, svalid,
+                                       stage.radius, stage.nsample)
+            slot = torch.arange(stage.nsample, device=coords.device)
+            gmask = slot < cnt.clamp(max=stage.nsample)[..., None]
+            gmask = gmask & svalid[..., None]
+            gmask = torch.cat([svalid[..., None], gmask[..., 1:]], -1)
+            rel = take(coords, nidx) - centers[:, :, None, :]
+            gfeats = torch.cat([rel, take(feats, nidx)], -1)
         ctx = {"mode": "global", "coords": coords, "centers": centers,
                "svalid": svalid}
         return centers, gfeats, gmask, svalid, ctx
     if part is None:
-        part = partition(coords, valid, th=cfg.th, strategy=cfg.strategy,
-                         on_overflow="silent")
-    samp = bppo.blockwise_fps(part, rate=stage.rate, k_out=n_out, bs=cfg.th)
-    nb = bppo.blockwise_ball_query(part, samp, radius=stage.radius,
-                                   num=stage.nsample, w=2 * cfg.th,
-                                   chunk=cfg.leaf_chunk)
-    feats_sorted = take(feats, part.perm)
-    centers = samp.coords
-    rel = bppo.gather(part.coords, nb.idx) - centers[:, :, None, :]
-    gmask = torch.cat([samp.valid[..., None], nb.mask[..., 1:]], -1)
-    gfeats = torch.cat([rel, bppo.gather(feats_sorted, nb.idx)], -1)
+        with obs.span(plan_span):
+            part = partition(coords, valid, th=cfg.th,
+                             strategy=cfg.strategy, on_overflow="silent")
+    with obs.span(sample_span):
+        samp = bppo.blockwise_fps(part, rate=stage.rate, k_out=n_out,
+                                  bs=cfg.th)
+    with obs.span(group_span):
+        nb = bppo.blockwise_ball_query(part, samp, radius=stage.radius,
+                                       num=stage.nsample, w=2 * cfg.th,
+                                       chunk=cfg.leaf_chunk)
+        feats_sorted = take(feats, part.perm)
+        centers = samp.coords
+        rel = bppo.gather(part.coords, nb.idx) - centers[:, :, None, :]
+        gmask = torch.cat([samp.valid[..., None], nb.mask[..., 1:]], -1)
+        gfeats = torch.cat([rel, bppo.gather(feats_sorted, nb.idx)], -1)
     return centers, gfeats, gmask, samp.valid, {"mode": "bppo", "part": part,
                                                 "samp": samp}
 
@@ -256,23 +283,31 @@ def apply(params: PNN, cfg: PNNConfig, coords: torch.Tensor,
     skips = [(coords, feats, valid)]
     ctxs = []
     for i, s in enumerate(cfg.stages):
+        names = _sa_names(i)
         centers, gfeats, gmask, svalid, ctx = _stage_points(
-            cfg, s, *skips[-1], sizes[i + 1], part=part0 if i == 0 else None)
-        pooled = _aggregate(params.stages[i], gfeats, gmask, cfg.variant)
+            cfg, s, *skips[-1], sizes[i + 1], names=names,
+            part=part0 if i == 0 else None)
+        with obs.span(names[3]):
+            pooled = _aggregate(params.stages[i], gfeats, gmask, cfg.variant)
         ctxs.append(ctx)
         skips.append((centers, pooled, svalid))
 
     if cfg.task == "cls":
-        _, f, v = skips[-1]
-        g = torch.where(v[..., None], f, -3.0e38).amax(1)
-        return params.out(params.head(g))
+        with obs.span("head"):
+            _, f, v = skips[-1]
+            g = torch.where(v[..., None], f, -3.0e38).amax(1)
+            return params.out(params.head(g))
 
     up = skips[-1][1]
     for i in range(len(cfg.fp_widths)):
         lvl = len(cfg.stages) - 1 - i
-        merged = _propagate(cfg, ctxs[lvl], up, skips[lvl][1])
-        up = params.fp[i](merged)
-    return params.out(params.head(up))
+        interpolate_span, mlp_span = _fp_names(i)
+        with obs.span(interpolate_span):
+            merged = _propagate(cfg, ctxs[lvl], up, skips[lvl][1])
+        with obs.span(mlp_span):
+            up = params.fp[i](merged)
+    with obs.span("head"):
+        return params.out(params.head(up))
 
 
 # Paper Table I model presets -------------------------------------------------

@@ -25,10 +25,13 @@ Counterpart of ``repro.serve.engine``:
 
 The forward reads nothing back to the host.  The one sync of a microbatch
 is the copy of its logits to the host; the partition-overflow check runs
-after it.  Entry points run on the card (``device=None`` resolves to
-``cuda`` and raises where there is none); pass ``device="cpu"`` for the
-plain versions.  The engine is synchronous and deterministic: time enters
-only through its clock (injectable for tests).
+after it.  Each microbatch and each request leaves a record in
+``repro_torch.obs`` (spans of its phases, its padding, its wait);
+``stats()["phases"]`` gives their medians.  Entry points run on the card
+(``device=None`` resolves to ``cuda`` and raises where there is none);
+pass ``device="cpu"`` for the plain versions.  The engine is synchronous
+and deterministic: time enters only through its clock (injectable for
+tests).
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import fractal
 from repro_torch.device import resolve_device
 from repro_torch.dist import elastic, logical, process
@@ -95,6 +99,7 @@ class ServeEngine:
                                      cfg.max_wait_s)
         self.plans = PlanCache()
         self._clock = clock
+        self._obs = obs.new_owner()
         overrides = {k: getattr(cfg, k) for k in ("stages", "fp_widths")
                      if getattr(cfg, k) is not None}
         self._base = pnn.PNNConfig(
@@ -154,10 +159,13 @@ class ServeEngine:
             b = clouds.shape[0]
             clouds, valid, dim0 = (logical.shard(t, 0, "batch")
                                    for t in (clouds, valid, dim0))
-            part = (self._plan_fn(bucket)(clouds, valid, dim0)
-                    if self.cfg.point_ops == "bppo" else None)
-            out = self._serve_fn(bucket)(self.params, clouds, valid, part)
-            out = logical.unshard(out, 0, "batch", b)
+            part = None
+            if self.cfg.point_ops == "bppo":
+                with obs.span("plan"):
+                    part = self._plan_fn(bucket)(clouds, valid, dim0)
+            with obs.span("forward"):
+                out = self._serve_fn(bucket)(self.params, clouds, valid, part)
+                out = logical.unshard(out, 0, "batch", b)
         return out, part
 
     # -- serving ----------------------------------------------------------
@@ -184,8 +192,10 @@ class ServeEngine:
         """Admit one (n, 3) cloud (array or tensor); returns the request
         id.  ``dim0`` phases the cloud's partition plan."""
         now = self._clock() if now is None else now
+        t_admit = obs.stamp()
         coords = torch.as_tensor(np.asarray(coords, dtype=np.float32))
         req = self.queue.submit(coords, now, dim0=dim0)
+        obs.admitted(self._obs, req.rid, now, t_admit)
         if self._t_first is None:
             self._t_first = now
         return req.rid
@@ -195,8 +205,9 @@ class ServeEngine:
         deadline).  Returns the completed request ids; an injected ``now``
         stamps the completions."""
         done = []
-        for mb in self._due(self._clock() if now is None else now):
-            done.extend(self._execute(mb, now=now))
+        t = self._clock() if now is None else now
+        for mb in self._due(t):
+            done.extend(self._execute(mb, t, now=now))
         return done
 
     def _due(self, now: float) -> list:
@@ -215,35 +226,52 @@ class ServeEngine:
     def flush(self, now: float | None = None) -> list[int]:
         """Drain the queue (end of stream), deadline or not."""
         done = []
+        t = self._clock() if now is None else now
         for mb in self.queue.drain():
-            done.extend(self._execute(mb, now=now))
+            done.extend(self._execute(mb, t, now=now))
         return done
 
     def take(self, rid: int, default=None):
         """Pop a completed result."""
         return self.results.pop(rid, default)
 
-    def _execute(self, mb: MicroBatch, now: float | None = None) -> list[int]:
-        """Run one microbatch.  With an injected ``now`` completions are
-        stamped with it; otherwise the engine clock is read after the
-        logits reach the host."""
+    def _execute(self, mb: MicroBatch, t_dispatch: float,
+                 now: float | None = None) -> list[int]:
+        """Run one microbatch, dispatched at ``t_dispatch``.  With an
+        injected ``now`` completions are stamped with it; otherwise the
+        engine clock is read after the logits reach the host."""
         bucket, reqs = mb.bucket, mb.requests
-        npad = self.queue.microbatch - len(reqs)
-        clouds = torch.stack([r.coords for r in reqs]
-                             + [torch.zeros((bucket, 3))] * npad)
-        valid = torch.stack([r.valid for r in reqs]
-                            + [torch.zeros((bucket,), dtype=torch.bool)]
-                            * npad)
-        dim0 = torch.tensor([r.dim0 for r in reqs] + [0] * npad)
-        out, part = self._forward(bucket, clouds.to(self.device),
-                                  valid.to(self.device),
-                                  dim0.to(self.device))
-        out = out.cpu().numpy()           # the microbatch's one sync
+        size = self.queue.microbatch
+        with obs.microbatch(self._obs, bucket, reqs, size, t_dispatch,
+                            self.device):
+            with obs.span("stack"):
+                npad = size - len(reqs)
+                clouds = torch.stack([r.coords for r in reqs]
+                                     + [torch.zeros((bucket, 3))] * npad)
+                valid = torch.stack(
+                    [r.valid for r in reqs]
+                    + [torch.zeros((bucket,), dtype=torch.bool)] * npad)
+                dim0 = torch.tensor([r.dim0 for r in reqs] + [0] * npad)
+            with obs.span("copy_in"):
+                clouds, valid, dim0 = (t.to(self.device)
+                                       for t in (clouds, valid, dim0))
+            out, part = self._forward(bucket, clouds, valid, dim0)
+            with obs.span("copy_out"):
+                out = out.cpu().numpy()           # the microbatch's one sync
+            with obs.span("finish"):
+                rids = self._finish(bucket, reqs, out, part, now)
+        return rids
+
+    def _finish(self, bucket, reqs, out, part, now) -> list[int]:
+        """The overflow check and the results of a microbatch whose
+        logits ``out`` are on the host."""
         t_done = self._clock() if now is None else now
-        if part is not None and self.cfg.on_overflow == "warn":
-            fractal.warn_if_overflowed(
-                part, th=self.cfg.th,
-                depth=fractal.default_depth(bucket, self.cfg.th))
+        if part is not None:
+            if self.cfg.on_overflow == "warn":
+                fractal.warn_if_overflowed(
+                    part, th=self.cfg.th,
+                    depth=fractal.default_depth(bucket, self.cfg.th))
+            obs.leaf_fill(part.leaf_vsize, self.cfg.th)
         rids = []
         for i, r in enumerate(reqs):
             res = out[i][:r.n] if self.cfg.task == "seg" else out[i]
@@ -258,7 +286,11 @@ class ServeEngine:
     def stats(self) -> dict:
         """Per-bucket latency percentiles, sustained throughput (None until
         a completed window has positive width) and plan-cache counters, on
-        this rank's clock, with the world size and the mesh shape."""
+        this rank's clock, with the world size and the mesh shape; from
+        ``repro_torch.obs``, ``padding`` (this engine's microbatches, slots
+        and padded slots) and ``phases``: the median host ms (and on the
+        card device ms) of a microbatch and of its plan, point-op and MLP
+        spans, over this engine's records the registry holds."""
         buckets = {}
         served, points = 0, 0
         wall = None
@@ -289,4 +321,6 @@ class ServeEngine:
                 "clouds_per_s": served / wall if wall is not None else None,
                 "mpts_per_s": (points / wall / 1e6
                                if wall is not None else None),
-                "buckets": buckets, "plan_cache": self.plans.stats()}
+                "buckets": buckets, "plan_cache": self.plans.stats(),
+                "padding": obs.counters(self._obs),
+                "phases": obs.phase_medians(self._obs)}
