@@ -38,7 +38,12 @@ of which raises on failure:
    four forward kernels in one microbatch of the largest bucket, with the
    kernel's, the plain version's and the PyTorch library call's median
    times; ``fractal_level_blocks``, on no path, is held and timed on that
-   microbatch's stage-0 leaf blocks, each split at its valid midpoint;
+   microbatch's stage-0 leaf blocks, each split at its valid midpoint; the
+   partition's level pass (``partition``) is held field by field against
+   its tensor pass and timed (device, host a call, launches a call, bound
+   in bytes) on a blocks microbatch (4 x 4096, a dim0 a cloud) and a rooms
+   microbatch (8 x 289,000); its launches in the printed row are the
+   serving run's (phase 4), which fails if it launched none;
 4. serve 8 mixed-size segmentation requests through ``ServeEngine`` on the
    card (pointnet2 seg, full widths, th=256, buckets 4096/16384/65536,
    microbatch 4, seeded random weights), with every kernel's launch count
@@ -234,6 +239,10 @@ REPLACES = {
 }
 SERVING = ("fps_blocks", "ball_query_blocks", "knn_blocks", "gather_blocks")
 TRAINING = SERVING + ("scatter_add_blocks",)
+# What a served microbatch launches: the point ops (held call by call on
+# the main path's own inputs) and the partition's level pass (held on the
+# main path's clouds by ``phase_partition``).
+SERVED = SERVING + ("partition",)
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name.rsplit('_', 1)[0]}.cu"
            for name in REPLACES}
 LEVEL_DIMS_TIMED = (0, 1)   # the (da, db) pair whose leaf-block call is timed
@@ -571,7 +580,7 @@ def phase_serve(engine):
     launches = ops.launch_counts()
     log(f"served {len(rids)} requests of sizes {sizes} in {wall:.3f} s")
     log(f"launches during serving: {launches}")
-    idle = [k for k in SERVING if launches[k] == 0]
+    idle = [k for k in SERVED if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
     results = {}
@@ -683,6 +692,61 @@ def phase_level_kernel() -> dict:
         f"pairs equal their plain versions")
     return hold_and_time([(n, a) for n, a in calls
                           if (a["da"], a["db"]) == LEVEL_DIMS_TIMED])
+
+
+def partition_calls() -> list:
+    """[("partition", arguments)] on the main path's own clouds at th=TH:
+    a blocks microbatch (4 x 4096 points, each cloud phased on its own
+    dim0) and a rooms microbatch (8 x 289,000 points of the port's scene
+    generator), each at the engine's depth."""
+    import torch
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import checks
+    blocks = torch.from_numpy(np.stack([clustered_cloud(4096, 300 + i)
+                                        for i in range(4)])).cuda()
+    bvalid = torch.ones(blocks.shape[:2], dtype=torch.bool, device="cuda")
+    rooms = torch.stack([synthetic.scene(s, N_289K, device="cuda")[0]
+                         for s in range(8)])
+    rvalid = torch.ones(rooms.shape[:2], dtype=torch.bool, device="cuda")
+    return [("partition", checks.partition_args(
+                blocks, bvalid, th=TH, dim0=torch.tensor([0, 1, 2, 0]))),
+            ("partition", checks.partition_args(
+                rooms, rvalid, th=TH, dim0=torch.zeros(8, dtype=torch.long)))]
+
+
+def phase_partition() -> dict:
+    """The partition's level pass against its tensor pass on the main
+    path's clouds (``partition_calls``), every field exactly; the kernel's
+    device time, its host time a call (enqueue only), its launches a call,
+    the tensor pass's time (host included) and the bound in bytes."""
+    import torch
+    from repro_torch.kernels import checks, partition
+    rows = {}
+    for name, args in partition_calls():
+        checks.hold(name, args)
+        run_kernel, run_plain = checks.runners(name, args)
+        before = partition.partition.launches
+        run_kernel()
+        launches = partition.partition.launches - before
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            run_kernel()
+        host_ms = (time.perf_counter() - t0) / 10 * 1e3
+        torch.cuda.synchronize()
+        ms = median_ms(run_kernel, reps=20)
+        plain_ms = median_ms(run_plain, reps=5, warmup=1, batch=1)
+        nbytes, ops = checks.work(name, args)
+        bms, by = bound_ms(nbytes, ops)
+        b, n = args["valid"].shape
+        log(f"  partition B={b} n={n} depth={args['depth']} ML={args['ml']}: "
+            f"kernel {ms:.4f} ms (host {host_ms:.4f} ms a call, {launches} "
+            f"launches)  plain {plain_ms:.4f} ms  bound {bms:.5f} ms ({by}: "
+            f"{nbytes / 1e6:.2f} MB)  every field equal")
+        rows[f"{b}x{n}"] = dict(ms=ms, host_ms=host_ms,
+                                launches_a_call=launches, plain_ms=plain_ms,
+                                bound_ms=bms)
+    return rows
 
 
 def phase_profile(engine):
@@ -873,7 +937,7 @@ def phase_scene_1m(eng) -> dict:
         + " / ".join(f"{b}: {v['p50_ms']:.1f} ms x{v['count']}"
                      for b, v in st["buckets"].items()))
     log(f"launches during the 1M scene: {launches}")
-    idle = [k for k in SERVING if launches[k] == 0]
+    idle = [k for k in SERVED if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the scene path: "
                              f"{idle}")
@@ -1891,6 +1955,7 @@ def main() -> int:
     phase_289k(engine)
     phase_profile(engine)
     rows.update(phase_level_kernel())
+    partition_rows = phase_partition()
     phase_global(engine)
     scene_launches = phase_scene(engine.params)
     del engine
@@ -1929,13 +1994,16 @@ def main() -> int:
         f"and for fractal_level_blocks one call on that microbatch's leaf "
         f"blocks, (da, db) = {LEVEL_DIMS_TIMED}; launches: the serving run "
         f"(for scatter_add_blocks the {TRAIN_STEPS} training steps; "
-        f"fractal_level_blocks is on no path); launches on the other paths, "
+        f"fractal_level_blocks is on no path), also for the partition, "
+        f"whose rows give a call's launches apart; launches on the other paths, "
         f"each read around its own run: the compressed trainings "
         f"{compressed}, the PNN cells' timed steps {cells}, the 1M scene's "
         f"inference {scene_launches}, the thin clients' runs "
         f"{example_launches}; card: {smi}; total "
         f"{time.monotonic() - t_start:.1f} s)")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "partition": {
+        "route": "cuda", "source": "src/repro_torch/kernels/csrc/partition.cu",
+        "launches": launches["partition"], "calls": partition_rows}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

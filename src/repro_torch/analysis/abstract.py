@@ -66,6 +66,11 @@ LAUNCHERS = {
     "gather": ("gather.cu", ("gather_kernel<float4>", "gather_kernel<float>")),
     "scatter_add": ("scatter_add.cu", ("scatter_add_kernel",)),
     "fractal_level": ("fractal_level.cu", ("fractal_level_kernel",)),
+    "partition": ("partition.cu", ("partition_init_kernel",
+                                   "partition_count_kernel",
+                                   "partition_scatter_kernel",
+                                   "partition_slots_kernel",
+                                   "partition_final_kernel")),
 }
 
 # The largest shapes the paths launch (PERF.md's main-path rows and the PNN
@@ -86,6 +91,13 @@ PATH_SHAPES = (
     *(("scatter_add", (nb, 768, c, w))
       for nb, w, c in ((5048, 128, 64), (1208, 128, 128), (8192, 512, 128))),
     *(("fractal_level", (nb, 256)) for nb in (10204, 8192)),
+    # The partition's five stages (B, n, depth, stage): a blocks
+    # microbatch's stages 0-2, a rooms microbatch's stages 0-1, a 1M-point
+    # scene's one coarse partition.
+    *(("partition", (b, n, depth, stage))
+      for b, n, depth in ((4, 4096, 13), (4, 1024, 11), (4, 256, 0),
+                          (8, 289000, 18), (8, 72250, 18), (1, 1000000, 17))
+      for stage in range(5)),
 )
 
 

@@ -8,11 +8,13 @@ here reads a tensor back to the host, except the ``on_overflow="warn"``
 check, which runs after the partition is complete.
 
 The engine is level-synchronous: level ``l`` holds ``2**l`` tree nodes and
-points stay contiguous by node in depth-first (DFT) order.  A level costs
-a segment min/max, three cumulative sums and one scatter.  Strategies
-differ only in the split value ``mid``: ``fractal`` (midpoint of the
-node's points), ``uniform`` (cell centre, non-adaptive), ``octree`` (cell
-centre, adaptive), ``kdtree`` (median, by a real per-level sort).
+points stay contiguous by node in depth-first (DFT) order.  In
+``tensor_pass`` a level costs a segment min/max, three cumulative sums and
+one scatter.  Strategies differ only in the split value ``mid``:
+``fractal`` (midpoint of the node's points), ``uniform`` (cell centre,
+non-adaptive), ``octree`` (cell centre, adaptive), ``kdtree`` (median, by a
+real per-level sort).  ``fractal`` on the card runs the hand-written level
+pass of ``kernels/partition.py`` instead, field for field the same.
 
 JAX behaviours reproduced explicitly: ``segment_min/max`` give +-inf on an
 empty segment (``scatter_reduce`` seeded with +-inf); out-of-range scatter
@@ -26,6 +28,9 @@ import math
 import warnings
 
 import torch
+
+from repro_torch.kernels import partition as _kernel
+from repro_torch.kernels.common import on_card
 
 FRACTAL = "fractal"
 UNIFORM = "uniform"
@@ -156,6 +161,12 @@ def partition(coords: torch.Tensor, valid: torch.Tensor | None = None, *,
     on its own.  ``on_overflow="warn"`` warns, after the partition is built,
     when a leaf kept more than ``th`` valid points at the depth cap (a read
     back to the host); ``"silent"`` skips the check.
+
+    ``strategy="fractal"`` on the card runs the hand-written level pass
+    (``kernels.partition``, ``csrc/partition.cu``), elsewhere this module's
+    ``tensor_pass``, its plain version; the two agree field by field.
+    ``uniform``, ``octree`` and ``kdtree``, the paper's comparison
+    baselines, run ``tensor_pass`` on every device.
     """
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}")
@@ -177,14 +188,35 @@ def partition(coords: torch.Tensor, valid: torch.Tensor | None = None, *,
         ml = 2 ** depth
     else:
         ml = max_leaves(n, th, depth)
+    if isinstance(dim0, torch.Tensor):
+        dim0 = dim0.to(dtype=torch.int64, device=dev).reshape(b)
+    pts = coords.to(torch.float32)
+    vld = valid.to(torch.bool)
+    dims = (dim0,) if isinstance(dim0, torch.Tensor) else ()
+    if strategy == FRACTAL and on_card(pts, vld, *dims):
+        part = FractalPartition(**_kernel.partition(
+            pts, vld, th=th, depth=depth, ml=ml, dim0=dim0))
+        if pts.requires_grad:
+            part = dataclasses.replace(part, coords=take(pts, part.perm))
+    else:
+        part = tensor_pass(pts, vld, th=th, depth=depth, strategy=strategy,
+                           ml=ml, dim0=dim0)
+    if on_overflow == "warn" and strategy != UNIFORM and n > th:
+        warn_if_overflowed(part, th=th, depth=depth)
+    return part
+
+
+def tensor_pass(pts: torch.Tensor, vld: torch.Tensor, *, th: int, depth: int,
+                strategy: str, ml: int,
+                dim0: int | torch.Tensor) -> FractalPartition:
+    """The partition as tensor ops, ~250 of them a level: float32 ``pts``
+    (B, n, 3), bool ``vld`` (B, n), an int ``dim0`` or an int64 (B,) one,
+    and ``depth`` and ``ml`` resolved (see ``partition``)."""
+    b, n = pts.shape[:2]
+    dev = pts.device
     adaptive = strategy != UNIFORM
     needs_bbox = strategy in (UNIFORM, OCTREE)
     i64 = dict(dtype=torch.int64, device=dev)
-    if isinstance(dim0, torch.Tensor):
-        dim0 = dim0.to(**i64).reshape(b)
-
-    pts = coords.to(torch.float32)
-    vld = valid.to(torch.bool)
     orig = torch.arange(n, **i64).expand(b, n)
     node = torch.zeros((b, n), **i64)
     arange_n = torch.arange(n, **i64)
@@ -342,7 +374,7 @@ def partition(coords: torch.Tensor, valid: torch.Tensor | None = None, *,
 
     i32 = lambda t: t.to(torch.int32)
     slot_ids = torch.arange(L, **i64).expand(b, L)
-    part = FractalPartition(
+    return FractalPartition(
         perm=i32(orig),
         coords=pts,
         valid=vld,
@@ -365,9 +397,6 @@ def partition(coords: torch.Tensor, valid: torch.Tensor | None = None, *,
         max_leaf_vsize=i32(torch.where(slot_is_leaf, slot["vsize"],
                                        0).amax(1)),
     )
-    if on_overflow == "warn" and adaptive and n > th:
-        warn_if_overflowed(part, th=th, depth=depth)
-    return part
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,12 @@ SIGNATURES = {
     "fc_gather_blocks": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fc_scatter_add_blocks": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fc_fractal_level_blocks": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # coords, valid, dim0 (or null), dim0 as an int, B, n, depth, th, ML,
+    # scratch, coords out, int32 outputs' pointers, bool outputs' pointers,
+    # int launched out, stream; and the scratch it needs (words out).
+    "fc_partition": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                     _P],
+    "fc_partition_scratch": [_I, _I, _I, _P],
     # Query twins of the launchers: the launch geometry of given shapes
     # (shape ints, then an int[6] out), without a launch; a kernel
     # variant's attributes (variant, threads, smem, int[5] out); and the
@@ -54,9 +60,11 @@ SIGNATURES = {
     "fc_gather_geometry": [_I, _I, _I, _I, _I, _P],
     "fc_scatter_add_geometry": [_I, _I, _I, _I, _P],
     "fc_fractal_level_geometry": [_I, _I, _P],
+    "fc_partition_geometry": [_I, _I, _I, _I, _P],   # B, n, depth, stage
     **{f"fc_{family}_attributes": [_I, _I, _I, _P]
        for family in ("fps_warp", "fps_cta", "fps_wide", "ball_query", "knn",
-                      "gather", "scatter_add", "fractal_level")},
+                      "gather", "scatter_add", "fractal_level",
+                      "partition")},
     "fc_device_limits": [_P],
 }
 

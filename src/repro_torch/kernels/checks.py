@@ -31,6 +31,13 @@ The partition level, ``fractal_level_blocks``, has its own too
 side empty), lanes exactly at the split value, blocks of 32, 256, 513 and
 2048 lanes with valid lanes only in every thread's last slot, and a run
 chunked through ``ops.fractal_level_blocks`` against an unchunked one.
+The whole partition, ``partition`` (``partition_ladder``), is held
+against its tensor pass on B of 1 and 4 clouds of 1, 65, 256, 257, 4,096
+and 72,250 points (one and several 2048-point tiles, a node that spans
+many), with an int ``dim0`` and a (B,) one (negative values included),
+all-invalid clouds, clouds of one point repeated and of lattice points
+(ties at the midpoint go left), a depth cap that overflows, and
+``max_leaves_`` below the real leaf count.
 FPS, ball query, kNN and gather also run chunked through ``kernels.ops``
 (``chunk_ladder``), as a model with ``leaf_chunk`` calls them: each chunk
 a view into the middle of the block axis and the last chunk shorter,
@@ -51,6 +58,8 @@ Rules:
 * the partition level must match exactly: side bits, left counts and child
   extrema compared with ``==`` (min, max and a count do not depend on the
   order of the lanes; ``==`` holds -0 equal to +0);
+* the partition must match exactly: every ``FractalPartition`` field equal,
+  the coordinates bit for bit;
 * scatter-add within ``SUM_TOL`` (absolute and relative).  CUDA's own
   ``scatter_add_`` adds with atomics in no fixed order, so the plain
   version scatters one row position at a time and sums each cell's rows
@@ -69,6 +78,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import fractal
 from repro_torch.kernels import (ball_query, fps, fractal_level, gather, knn,
                                  ops)
 from repro_torch.kernels.common import INF, sqdist_rows
@@ -77,7 +87,7 @@ D2_TOL = 1e-5
 SUM_TOL = 1e-5
 GRAD_REL_TOL = 1e-3
 KERNELS = ("fps_blocks", "ball_query_blocks", "knn_blocks", "gather_blocks",
-           "scatter_add_blocks", "fractal_level_blocks")
+           "scatter_add_blocks", "fractal_level_blocks", "partition")
 LEVEL_DIMS = ((0, 1), (1, 2), (2, 0))
 
 
@@ -197,7 +207,7 @@ def ladder(device) -> list:
     calls.append(("knn_blocks", dict(q=cen, window=c, wmask=m, num=3)))
     return (calls + fps_ladder(device) + topk_ladder(device)
             + chunk_ladder(device) + scatter_ladder(device)
-            + level_ladder(device))
+            + level_ladder(device) + partition_ladder(device))
 
 
 def chunk_ladder(device) -> list:
@@ -320,6 +330,62 @@ def level_ladder(device) -> list:
     return calls
 
 
+def partition_args(coords, valid, *, th: int, dim0=0, depth=None,
+                   max_leaves_=None) -> dict:
+    """Arguments of one ``partition`` call, with the depth and the leaf
+    slots resolved as ``core.fractal.partition`` resolves them, and a
+    tensor ``dim0`` as the int64 (B,) one it hands on."""
+    n = coords.shape[1]
+    depth = fractal.default_depth(n, th) if depth is None else depth
+    ml = (fractal.max_leaves(n, th, depth) if max_leaves_ is None
+          else max_leaves_)
+    if isinstance(dim0, torch.Tensor):
+        dim0 = dim0.to(device=coords.device, dtype=torch.int64)
+    return dict(coords=coords, valid=valid, th=th, depth=depth, ml=ml,
+                dim0=dim0)
+
+
+def partition_ladder(device) -> list:
+    """[("partition", arguments)] of the partition cases."""
+    calls = []
+
+    def cloud(seed, b, n, p=0.9):
+        rng = np.random.default_rng(seed)
+        c = rng.normal(0, 1, (b, n, 3)).astype(np.float32)
+        v = rng.random((b, n)) < p
+        return torch.from_numpy(c).to(device), torch.from_numpy(v).to(device)
+
+    def add(c, v, th, **kw):
+        calls.append(("partition", partition_args(c, v, th=th, **kw)))
+
+    for b in (1, 4):
+        phases = torch.tensor([1, -4, 5, 3][:b])
+        for n in (1, 65, 256, 257, 4096, 72_250):
+            c, v = cloud(90 + n + b, b, n)
+            th = 32 if n <= 257 else 256
+            add(c, v, th, dim0=b % 3)
+            add(c, v, th, dim0=phases)
+    c, v = cloud(91, 4, 257)                             # all-invalid clouds
+    v[1] = False
+    add(c, v, 32)
+    add(c[:1], torch.zeros_like(v[:1]), 32, dim0=2)
+    same = torch.full((2, 257, 3), 0.25, device=device)  # one point repeated
+    same[1, :, 1] = -3.0
+    sv = torch.ones((2, 257), dtype=torch.bool, device=device)
+    sv[1, ::5] = False
+    add(same, sv, 32, dim0=torch.tensor([0, 2]))
+    rng = np.random.default_rng(92)                      # lattice points
+    g = rng.integers(0, 4, (3, 3000, 3)).astype(np.float32)
+    add(torch.from_numpy(g).to(device),
+        torch.from_numpy(rng.random((3, 3000)) < 0.8).to(device), 64,
+        dim0=torch.tensor([0, 1, 2]))
+    c, v = cloud(93, 4, 4096)
+    add(c, v, 64, depth=3)                              # overflows at the cap
+    add(c, v, 64, max_leaves_=5)                        # leaves past ML
+    add(c, v, 64, depth=4, max_leaves_=3, dim0=torch.tensor([2, 0, 1, 1]))
+    return calls
+
+
 def level_at_midpoints(coords, mask, da: int, db: int) -> dict:
     """Arguments of one ``fractal_level_blocks`` call on blocks ``coords``
     (..., BS, 3) with ``mask`` (..., BS), flattened to (NB, BS), each block
@@ -372,6 +438,13 @@ def runners(name: str, args: dict):
                 else (lambda: fractal_level.fractal_level_blocks(c, m, mid,
                                                                  **kw)),
                 lambda: fractal_level.fractal_level_plain(c, m, mid, **kw))
+    if name == "partition":
+        c, v = args["coords"], args["valid"]
+        kw = dict(th=args["th"], depth=args["depth"], dim0=args["dim0"])
+        return ((lambda: fractal.partition(c, v, max_leaves_=args["ml"],
+                                           on_overflow="silent", **kw)),
+                lambda: fractal.tensor_pass(c, v, strategy=fractal.FRACTAL,
+                                            ml=args["ml"], **kw))
     q, w, wm, num = args["q"], args["window"], args["wmask"], args["num"]
     if name == "ball_query_blocks":
         cm, r = args["cmask"], args["radius"]
@@ -469,6 +542,15 @@ def hold_result(name: str, args: dict, got, want, tol: float = D2_TOL) -> dict:
             if a.shape != b.shape or not bool((a == b).all()):
                 raise AssertionError(f"fractal_level_blocks: {part} differs "
                                      f"from its plain version")
+        return {"max_abs_err": 0.0, "count_rows": 0}
+    if name == "partition":
+        for field in got.__dataclass_fields__:
+            a, b = getattr(got, field), getattr(want, field)
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"partition: {field} differs from the "
+                                     f"tensor pass")
         return {"max_abs_err": 0.0, "count_rows": 0}
     if name in ("fps_blocks", "gather_blocks"):
         if not torch.equal(got, want):
@@ -571,6 +653,15 @@ def work(name: str, args: dict) -> tuple[float, float]:
         nv = int(m.sum())
         return (m.numel() + nb * 4 + nv * 8 + nb * bs * 4 + nb * 4
                 + nb * 16, float(nv) * 4.0)
+    if name == "partition":
+        # reads each point and its valid flag, writes the permuted points,
+        # flags and indices, the leaf arrays (ML slots), the slot
+        # bookkeeping (2^depth slots) and four numbers a cloud; the
+        # splits themselves are compares, counted as nothing
+        b, n = args["valid"].shape
+        ml, slots = args["ml"], 1 << args["depth"]
+        return (b * n * (13 + 17) + b * ml * (8 * 4 + 1)
+                + b * (2 * slots + 1) * 4 + b * 18, 0.0)
     if name == "scatter_add_blocks":
         # reads the indices and each in-range cotangent row, writes the
         # whole window tile; one add per in-range (row, channel)

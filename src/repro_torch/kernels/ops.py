@@ -16,6 +16,9 @@ Every op carries its gradient rule (``kernels/vjp.py``) on both devices:
 ``Gathering`` node per chunk); FPS, ball query and kNN are index producers
 that pass no gradient on, and so is ``fractal_level_blocks``, whose side
 bits, counts and child extrema get zero cotangents.
+
+``KERNELS`` also counts the launches of the partition's level pass
+(``kernels/partition.py``), which ``core.fractal.partition`` calls.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.kernels import fps as _fps
 from repro_torch.kernels import fractal_level as _fl
 from repro_torch.kernels import gather as _ga
 from repro_torch.kernels import knn as _knn
+from repro_torch.kernels import partition as _pa
 from repro_torch.kernels.vjp import Gathering, IndexProducer
 
 KERNELS = {"fps_blocks": _fps.fps_blocks,
@@ -33,7 +37,8 @@ KERNELS = {"fps_blocks": _fps.fps_blocks,
            "knn_blocks": _knn.knn_blocks,
            "gather_blocks": _ga.gather_blocks,
            "scatter_add_blocks": _ga.scatter_add_blocks,
-           "fractal_level_blocks": _fl.fractal_level_blocks}
+           "fractal_level_blocks": _fl.fractal_level_blocks,
+           "partition": _pa.partition}
 
 
 def launch_counts() -> dict:

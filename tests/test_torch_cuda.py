@@ -129,6 +129,48 @@ def test_level_kernel_on_partition_leaves(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("depth", [0, 1, 4, 13, 18])
+def test_partition_launches_two_a_level_and_three(cuda_device, depth):
+    """One ``fractal.partition`` call on the card: the level pass, equal to
+    the tensor pass, in exactly 2 * depth + 3 launches (a count and a
+    scatter pass a level; init, slot scan and compaction), well inside a
+    budget of 4 * depth + 3."""
+    c, v = checks.scattered(70 + depth, 3, 5000, cuda_device, 0.9)
+    args = checks.partition_args(c, v, th=32, depth=depth,
+                                 dim0=torch.tensor([2, 0, 1]))
+    before = ops.launch_counts()["partition"]
+    checks.hold("partition", args)
+    launched = ops.launch_counts()["partition"] - before
+    assert launched == 2 * depth + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", [fractal.UNIFORM, fractal.OCTREE,
+                                      fractal.KDTREE])
+def test_baseline_strategies_keep_the_tensor_pass(cuda_device, strategy):
+    c, v = checks.scattered(75, 2, 700, cuda_device, 0.9)
+    before = ops.launch_counts()["partition"]
+    fractal.partition(c, v, th=32, strategy=strategy, on_overflow="silent")
+    assert ops.launch_counts()["partition"] == before
+
+
+@pytest.mark.cuda
+def test_partition_on_the_card_carries_the_coordinates_gradient(
+        cuda_device):
+    c, v = checks.scattered(76, 2, 3000, cuda_device, 0.9)
+    w = torch.randn(2, 3000, 3, device=cuda_device)
+    card = c.clone().requires_grad_()
+    part = fractal.partition(card, v, th=64, dim0=1)
+    (g,) = torch.autograd.grad((part.coords * w).sum(), card)
+    cpu = c.cpu().requires_grad_()
+    want = fractal.partition(cpu, v.cpu(), th=64, dim0=1)
+    (gw,) = torch.autograd.grad((want.coords * w.cpu()).sum(), cpu)
+    assert torch.equal(part.perm.cpu(), want.perm)
+    assert torch.equal(g.cpu(), gw)
+    assert part.perm.grad_fn is None
+
+
+@pytest.mark.cuda
 def test_every_seg_parameter_learns_on_the_card(cuda_device):
     cfg = train.model_config(train.TrainConfig(preset="pointnet2_seg",
                                                n_points=1024, th=64))
