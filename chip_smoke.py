@@ -43,7 +43,15 @@ of which raises on failure:
    its tensor pass and timed (device, host a call, launches a call, bound
    in bytes) on a blocks microbatch (4 x 4096, a dim0 a cloud) and a rooms
    microbatch (8 x 289,000); its launches in the printed row are the
-   serving run's (phase 4), which fails if it launched none;
+   serving run's (phase 4), which fails if it launched none; then
+   PointNeXt-XL (``pnn.pointnext_xl_seg``: variant pointnext_invres at
+   its published widths, 15 InvResMLP blocks, BPPO at th=256, seeded
+   random weights): one microbatch of 4 rooms of 289,000 points served
+   through ``ServeEngine``, with every kernel's launch count read around
+   it (each point-op kernel and the partition launched, one neighbour
+   search a stage), and every kernel call of it (the blocks' stride-1
+   ball queries, 256 centres a leaf block over 512 lanes, among them)
+   held and timed as above;
 4. serve 8 mixed-size segmentation requests through ``ServeEngine`` on the
    card (pointnet2 seg, full widths, th=256, buckets 4096/16384/65536,
    microbatch 4, seeded random weights), with every kernel's launch count
@@ -185,6 +193,7 @@ MICROBATCH = 4
 REQUESTS = 8
 SEED = 0
 N_289K = 289_000
+XL_ROOMS = 4             # a microbatch of the pointnext-xl.rooms-289k cell
 TRAIN_N = 16384          # points a cloud: the middle serving bucket
 TRAIN_BATCH = 8
 TRAIN_STEPS = 20
@@ -494,9 +503,11 @@ def phase_ladder(device):
     calls = checks.ladder(device)
     for name, args in calls:
         rows += checks.hold(name, args)["count_rows"]
+    stride1 = len(checks.stride1_ladder(device))
     log(f"ladder: {len(calls)} kernel calls match their plain versions "
         f"(ball query and kNN exactly; {rows} ball-query count rows off by "
-        f"their boundary lanes)")
+        f"their boundary lanes; {stride1} ball queries at the InvResMLP "
+        f"blocks' stride-1 shape, 256 centres over 512 lanes, num 32)")
 
 
 def make_engine(device, params=None):
@@ -747,6 +758,81 @@ def phase_partition() -> dict:
                                 launches_a_call=launches, plain_ms=plain_ms,
                                 bound_ms=bms)
     return rows
+
+
+def xl_engine(device, params=None):
+    """PointNeXt-XL (``pnn.pointnext_xl_seg``: variant pointnext_invres,
+    published widths, all 15 InvResMLP blocks, BPPO at th=TH) behind a
+    ``ServeEngine`` of one 289,000-point bucket, XL_ROOMS a microbatch,
+    seeded random weights."""
+    from repro_torch.models import pnn
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.engine import MODEL_FIELDS
+    m = pnn.pointnext_xl_seg(n=N_289K, point_ops="bppo", th=TH)
+    cfg = ServeConfig(buckets=(N_289K,), microbatch=XL_ROOMS,
+                      variant=m.variant, task=m.task,
+                      num_classes=m.num_classes, th=TH, on_overflow="silent",
+                      **{k: getattr(m, k) for k in MODEL_FIELDS})
+    return ServeEngine(cfg, params=params, seed=SEED, device=device)
+
+
+def phase_invres_xl() -> tuple[dict, dict]:
+    """PointNeXt-XL's main path: one microbatch of XL_ROOMS rooms of
+    289,000 points (the port's scene generator) served through
+    ``xl_engine``, with every kernel's launch count read around that run
+    (reset just before it) and its kernel calls recorded.  Fails if a
+    kernel of SERVED is not launched, if an answer is not finite logits of
+    its room's shape, or if the blocks' searches are not one a stage.  Then
+    every recorded call (the InvResMLP blocks' stride-1 ball queries among
+    them, 256 centres a leaf block over 512 lanes) is held against its
+    plain version and timed by ``hold_and_time``.  Returns (its rows, the
+    run's launches)."""
+    import torch
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import checks, ops
+    from repro_torch.models import pnn
+    rooms = [synthetic.scene(400 + i, N_289K, device="cuda")[0].cpu().numpy()
+             for i in range(XL_ROOMS)]
+    eng = xl_engine(None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    with checks.Recorder() as rec:
+        rids = [eng.submit(r) for r in rooms]
+        eng.flush()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+    outs = [eng.take(rid) for rid in rids]
+    model = eng.stats()["model"]
+    log(f"pointnext-xl: {XL_ROOMS} x {N_289K} points served in {wall:.3f} s "
+        f"(first microbatch), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches}; model counts {model}; {len(rec.calls)} kernel calls")
+    for rid, out in zip(rids, outs):
+        if out is None or out.shape != (N_289K, 13) or \
+                not np.isfinite(out).all():
+            raise AssertionError(f"pointnext-xl request {rid}: bad result "
+                                 f"{None if out is None else out.shape}")
+    idle = [k for k in SERVED if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on PointNeXt-XL's main "
+                             f"path: {idle}")
+    blocks = pnn.pointnext_xl_seg().blocks
+    want = {"res_queries": sum(1 for b in blocks if b),
+            "res_blocks": sum(blocks)}
+    if model != want:
+        raise AssertionError(f"pointnext-xl: model counts {model}, not "
+                             f"{want}")
+    del eng, outs
+    torch.cuda.empty_cache()
+    rows = hold_and_time(rec.calls)
+    missing = set(SERVING) - set(rows)
+    if missing:
+        raise AssertionError(f"PointNeXt-XL's main path made no call to "
+                             f"{sorted(missing)}")
+    return rows, launches
 
 
 def phase_profile(engine):
@@ -1956,6 +2042,7 @@ def main() -> int:
     phase_profile(engine)
     rows.update(phase_level_kernel())
     partition_rows = phase_partition()
+    xl_rows, xl_launches = phase_invres_xl()
     phase_global(engine)
     scene_launches = phase_scene(engine.params)
     del engine
@@ -2003,7 +2090,8 @@ def main() -> int:
         f"{time.monotonic() - t_start:.1f} s)")
     print(json.dumps({"kernels": kernels, "partition": {
         "route": "cuda", "source": "src/repro_torch/kernels/csrc/partition.cu",
-        "launches": launches["partition"], "calls": partition_rows}}))
+        "launches": launches["partition"], "calls": partition_rows},
+        "pointnext_xl": {"launches": xl_launches, "kernels": xl_rows}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -15,6 +15,8 @@ into the one block every rep uses.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 from torch import nn
@@ -48,8 +50,14 @@ def _load(module, tree, path: str, seen: set) -> None:
 def from_jax(params, cfg: pnn.PNNConfig,
              device: str | torch.device = "cpu") -> pnn.PNN:
     """A ``PNN`` for ``cfg`` holding the JAX parameter tree ``params``.
-    Raises if the tree and the module differ in any name, length or shape,
-    or if a module parameter is left unset."""
+    ``cfg`` may be the JAX package's own ``PNNConfig``: the fields the port
+    shares with it are read, the port's own keep their defaults.  Raises
+    if the tree and the module differ in any name, length or shape, or if
+    a module parameter is left unset."""
+    if not isinstance(cfg, pnn.PNNConfig):
+        cfg = pnn.PNNConfig(**{f.name: getattr(cfg, f.name)
+                               for f in dataclasses.fields(pnn.PNNConfig)
+                               if hasattr(cfg, f.name)})
     model = pnn.init(cfg)
     seen: set = set()
     _load(model, params, "params", seen)

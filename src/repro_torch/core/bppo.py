@@ -181,6 +181,47 @@ def blockwise_ball_query(part: FractalPartition, samp: BWSamples, *,
     return _compact_neighbors(samp, g, in_r, cnt, nd2, num)
 
 
+def _bq_points_slice(part, sl, *, r2, radius, num, w, bs):
+    ls, lv, ps, pv, il = sl
+    b, c = ls.shape
+    pts, pmask, pidx = leaf_from(ls, lv, il, part.coords, bs)
+    win, wmask, widx = window_from(ls, lv, ps, pv, il, part.coords,
+                                   part.valid, w)
+    lidx, nd2, _ = _on_blocks(
+        lambda *a: kops.ball_query_blocks(*a, radius=radius, num=num),
+        _flat(pts), _flat(pmask), _flat(win), _flat(wmask))
+    lidx = lidx.reshape(b, c, bs, num)
+    nd2 = nd2.reshape(b, c, bs, num).clamp(min=0.0)
+    in_r = (nd2 <= r2) & pmask[..., None]
+    lidx = torch.where(in_r, lidx, lidx[..., :1])
+    pos = torch.where(pmask, pidx, part.n).reshape(b, -1)
+    return (pos, _window_to_global(widx, lidx).reshape(b, -1, num),
+            in_r.reshape(b, -1, num))
+
+
+def blockwise_ball_query_points(part: FractalPartition, *, radius: float,
+                                num: int, w: int, bs: int,
+                                chunk: int | None = None):
+    """Block-wise grouping at stride 1 (PointNeXt's InvResMLP blocks):
+    every valid point of every leaf is a centre, ``bs`` (the threshold th)
+    centres a leaf block, and searches its leaf's parent window as
+    ``blockwise_ball_query``'s sampled centres do.  Returns (idx, mask),
+    (B, n, num) rows in the sorted order, row s the neighbours of point s:
+    indices into the sorted arrays (an empty slot repeats the nearest) and
+    the in-radius mask; the row of a point that is no centre (invalid, or
+    past ``bs`` in an overflowing leaf) holds index 0 and no valid slot.
+    ``chunk`` processes that many leaves of every cloud per step."""
+    n = part.n
+    pos, g, in_r = _chunked_slices(
+        (part.leaf_start, part.leaf_vsize, part.parent_start,
+         part.parent_vsize, part.is_leaf),
+        lambda s: _bq_points_slice(part, s, r2=f32_square(radius),
+                                   radius=radius, num=num, w=w, bs=bs),
+        chunk)
+    return (_scatter_rows(n, 0, pos, g).to(torch.int32),
+            _scatter_rows(n, False, pos, in_r))
+
+
 def _knn_slice(part, sl, *, k, w):
     ls, lv, ps, pv, il, gidx, bmask = sl
     b, c, kbm = gidx.shape

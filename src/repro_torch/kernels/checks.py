@@ -38,6 +38,12 @@ many), with an int ``dim0`` and a (B,) one (negative values included),
 all-invalid clouds, clouds of one point repeated and of lattice points
 (ties at the midpoint go left), a depth cap that overflows, and
 ``max_leaves_`` below the real leaf count.
+The ball query also meets the InvResMLP blocks' stride-1 shape
+(``stride1_ladder``): every lane of a 256-lane leaf block a centre against
+its 512-lane window at ``num`` = 32, with the leaf's own points as the
+centres (each its own nearest), empty and all-invalid blocks, scattered
+masks, lane-misaligned widths (255 centres over 509 lanes), and a run
+chunked through ``ops.ball_query_blocks`` against an unchunked one.
 FPS, ball query, kNN and gather also run chunked through ``kernels.ops``
 (``chunk_ladder``), as a model with ``leaf_chunk`` calls them: each chunk
 a view into the middle of the block axis and the last chunk shorter,
@@ -206,8 +212,42 @@ def ladder(device) -> list:
                                             wmask=m, radius=0.5, num=16)))
     calls.append(("knn_blocks", dict(q=cen, window=c, wmask=m, num=3)))
     return (calls + fps_ladder(device) + topk_ladder(device)
+            + stride1_ladder(device)
             + chunk_ladder(device) + scatter_ladder(device)
             + level_ladder(device) + partition_ladder(device))
+
+
+def stride1_ladder(device) -> list:
+    """[(name, arguments)] of the ball query at the stride-1 shape of the
+    InvResMLP blocks: KC = 256 centres, a whole leaf block, against W = 512
+    window lanes at ``num`` = 32."""
+    calls = []
+
+    def bq(cen, cm, win, wm, radius=0.5, chunk=None):
+        args = dict(q=cen, cmask=cm, window=win, wmask=wm, radius=radius,
+                    num=32)
+        if chunk:
+            args["chunk"] = chunk
+        calls.append(("ball_query_blocks", args))
+
+    def own(win, wm, kc, lo):
+        """The window's lanes [lo, lo + kc) as the centres: a leaf inside
+        its parent window, each centre its own nearest lane."""
+        return win[:, lo:lo + kc].contiguous(), wm[:, lo:lo + kc].contiguous()
+
+    win, wm = blocks(90, 6, 512, device, empty=1)     # prefix fills, 1 empty
+    bq(*own(win, wm, 256, 0), win, wm)
+    bq(*own(win, wm, 256, 128), win, wm, radius=0.25)
+    win, wm = scattered(91, 4, 512, device, p=0.3)    # scattered lanes
+    wm[1] = False
+    bq(*own(win, wm, 256, 200), win, wm)
+    win, wm = blocks(92, 3, 512, device, invalid=True)  # all invalid
+    bq(*own(win, wm, 256, 0), win, wm)
+    win, wm = blocks(93, 5, 509, device, empty=2)     # lane-misaligned
+    bq(*own(win, wm, 255, 131), win, wm)
+    win, wm = blocks(94, 7, 512, device, empty=1)     # chunked by 3
+    bq(*own(win, wm, 256, 64), win, wm, chunk=3)
+    return calls
 
 
 def chunk_ladder(device) -> list:

@@ -15,12 +15,31 @@ ops on either device, as the JAX package computes it.
 
 Variants: ``pointnet2`` (group -> shared MLP -> max-pool), ``pointnext``
 (+ inverted-residual MLP blocks after pooling), ``pointvector`` (learned
-per-neighbour gating before pooling).
+per-neighbour gating before pooling), and ``pointnext_invres``, PointNeXt's
+published encoder (Qian et al., NeurIPS 2022): each SA stage followed by
+``blocks[i]`` InvResMLP blocks on the stage's own points.  A block groups
+every point's neighbours within ``radius_scaling`` (PointNeXt's 2) times
+the stage's radius, runs a grouped dense layer and a max-pool (local
+aggregation), then a pointwise C -> ``expansion`` * C -> C pair, adds its
+input and applies a ReLU.  The blocks of a stage search the same points
+at the same radius, so their neighbours are found once a stage; only the
+feature gather runs once a block.  With ``point_ops="bppo"`` that search is block
+parallel at stride 1 (``bppo.blockwise_ball_query_points``) over the
+level's partition, which the next SA stage reuses.  Options the published
+net needs, off by default: ``stem_width`` (a dense layer on the input
+features before stage 0; its output is level 0's skip), ``normalize_dp``
+(grouped offsets divided by the search radius) and ``norm="batchnorm"``
+(BatchNorm in inference form, folded into each layer's dense weights).
 
 Inside a serving microbatch ``apply`` marks its phases as
-``repro_torch.obs`` spans: ``sa<i>.plan`` (a later stage's partition),
-``sa<i>.sample``, ``sa<i>.group``, ``sa<i>.mlp``, ``fp<i>.interpolate``,
-``fp<i>.mlp`` and ``head``; elsewhere they record nothing.
+``repro_torch.obs`` spans: ``stem.mlp``, ``sa<i>.plan`` (a later stage's
+partition), ``sa<i>.sample``, ``sa<i>.group``, ``sa<i>.mlp``, for the
+InvResMLP blocks ``sa<i>.res.plan`` (the last stage's partition, which no
+SA stage follows), ``sa<i>.res.group`` (the stage's one search) and
+``sa<i>.res<j>.group`` / ``sa<i>.res<j>.mlp`` (block j's gather and its
+layers), ``fp<i>.interpolate``, ``fp<i>.mlp`` and ``head``; and counts the
+``res_queries`` and ``res_blocks`` it runs (``obs.tally``).  Elsewhere
+they record nothing.
 """
 from __future__ import annotations
 
@@ -47,6 +66,7 @@ class SAStage:
 class PNNConfig:
     name: str = "pointnet2"
     variant: str = "pointnet2"       # pointnet2 | pointnext | pointvector
+                                     # | pointnext_invres
     task: str = "cls"                # cls | seg
     num_classes: int = 6
     n_points: int = 1024
@@ -62,6 +82,13 @@ class PNNConfig:
     strategy: str = "fractal"        # partition strategy, every stage
     num_blocks: int = 1              # extra residual blocks (pointnext)
     leaf_chunk: int | None = None    # leaves per step (large scale)
+    # pointnext_invres; the defaults leave the other variants as they are
+    blocks: tuple = ()               # InvResMLP blocks after each SA stage
+    expansion: int = 4               # a block's pointwise width over C
+    stem_width: int = 0              # dense stem before stage 0 (0: none)
+    normalize_dp: bool = False       # grouped offsets over the radius
+    norm: str = "layernorm"          # layernorm | batchnorm (inference)
+    radius_scaling: float = 2.0      # a block's search radius over its SA's
 
     def stage_sizes(self):
         sizes = [self.n_points]
@@ -99,63 +126,139 @@ class LayerNorm(nn.Module):
         return (x - mu) * torch.rsqrt(var + self.eps) * self.g + self.b
 
 
+class BatchNorm(nn.Module):
+    """BatchNorm in inference form: ``(x - mean) / sqrt(var + eps) * g +
+    b`` per channel, from the running statistics ``mean`` and ``var``."""
+
+    def __init__(self, d: int, eps: float = 1e-5):
+        super().__init__()
+        self.g = nn.Parameter(torch.ones(d))
+        self.b = nn.Parameter(torch.zeros(d))
+        self.register_buffer("mean", torch.zeros(d))
+        self.register_buffer("var", torch.ones(d))
+        self.eps = eps
+
+    def affine(self):
+        """(scale, shift): the norm as ``x * scale + shift``."""
+        scale = self.g * torch.rsqrt(self.var + self.eps)
+        return scale, self.b - self.mean * scale
+
+
 class Layer(nn.Module):
-    def __init__(self, din: int, dout: int, generator: torch.Generator):
+    """Dense, norm, ReLU.  BatchNorm is folded into the dense weights and
+    bias, so the layer is one matmul with its bias."""
+
+    def __init__(self, din: int, dout: int, generator: torch.Generator,
+                 norm: str = "layernorm"):
         super().__init__()
         self.dense = Dense(din, dout, generator)
-        self.ln = LayerNorm(dout)
+        self.norm = norm
+        if norm == "batchnorm":
+            self.bn = BatchNorm(dout)
+        elif norm == "layernorm":
+            self.ln = LayerNorm(dout)
+        else:
+            raise ValueError(f"norm must be 'layernorm' or 'batchnorm', "
+                             f"got {norm!r}")
+
+    def forward(self, x, act: bool = True):
+        if self.norm == "layernorm":
+            x = self.ln(self.dense(x))
+        else:
+            scale, shift = self.bn.affine()
+            w = self.dense.w * scale
+            x = torch.addmm(self.dense.b * scale + shift,
+                            x.reshape(-1, x.shape[-1]), w).view(
+                                *x.shape[:-1], w.shape[1])
+        return torch.relu(x) if act else x
 
 
 class MLP(nn.ModuleList):
-    """A list of (dense, ln) layers, each followed by ReLU."""
+    """A list of (dense, norm) layers, each followed by ReLU."""
 
-    def __init__(self, din: int, widths, generator: torch.Generator):
+    def __init__(self, din: int, widths, generator: torch.Generator,
+                 norm: str = "layernorm"):
         layers = []
         for w in widths:
-            layers.append(Layer(din, w, generator))
+            layers.append(Layer(din, w, generator, norm))
             din = w
         super().__init__(layers)
 
     def forward(self, x):
         for layer in self:
-            x = torch.relu(layer.ln(layer.dense(x)))
+            x = layer(x)
         return x
+
+
+class InvResMLP(nn.Module):
+    """PointNeXt's inverted-residual block on C channels: local
+    aggregation (``la``: a dense layer over each point's grouped offsets
+    and neighbour features, max-pooled), then ``pw1`` (C -> expansion * C,
+    ReLU) and ``pw2`` (back to C, no ReLU), the block's input added, and a
+    ReLU."""
+
+    def __init__(self, c: int, expansion: int, norm: str,
+                 generator: torch.Generator):
+        super().__init__()
+        self.la = Layer(c + 3, c, generator, norm)
+        self.pw1 = Layer(c, c * expansion, generator, norm)
+        self.pw2 = Layer(c * expansion, c, generator, norm)
+
+    def forward(self, gfeats, gmask, f):
+        """gfeats (B, m, ns, C + 3), gmask (B, m, ns), f (B, m, C)."""
+        g = _pool(self.la(gfeats), gmask)
+        return torch.relu(f + self.pw2(self.pw1(g), act=False))
 
 
 class Stage(nn.Module):
     def __init__(self, cfg: PNNConfig, c_in: int, s: SAStage,
-                 generator: torch.Generator):
+                 generator: torch.Generator, blocks: int = 0):
         super().__init__()
-        self.mlp = MLP(c_in + 3, s.widths, generator)
+        self.mlp = MLP(c_in + 3, s.widths, generator, cfg.norm)
         if cfg.variant == "pointvector":
             self.vec = Dense(c_in + 3, s.widths[-1], generator)
         if cfg.variant == "pointnext":
             self.res = nn.ModuleList(
                 MLP(s.widths[-1], (2 * s.widths[-1], s.widths[-1]), generator)
                 for _ in range(cfg.num_blocks))
+        if cfg.variant == "pointnext_invres":
+            self.blocks = nn.ModuleList(
+                InvResMLP(s.widths[-1], cfg.expansion, cfg.norm, generator)
+                for _ in range(blocks))
 
 
 class PNN(nn.Module):
     def __init__(self, cfg: PNNConfig, generator: torch.Generator):
         super().__init__()
-        stages, c_in = [], cfg.in_channels
-        for s in cfg.stages:
-            stages.append(Stage(cfg, c_in, s, generator))
+        blocks = cfg.blocks or (0,) * len(cfg.stages)
+        if len(blocks) != len(cfg.stages):
+            raise ValueError(f"blocks {cfg.blocks} does not give one count "
+                             f"a stage ({len(cfg.stages)} stages)")
+        if any(blocks) and cfg.variant != "pointnext_invres":
+            raise ValueError(f"InvResMLP blocks need variant "
+                             f"'pointnext_invres', got {cfg.variant!r}")
+        c0 = cfg.in_channels
+        if cfg.stem_width:
+            self.stem = Dense(cfg.in_channels, cfg.stem_width, generator)
+            c0 = cfg.stem_width
+        stages, c_in = [], c0
+        for s, k in zip(cfg.stages, blocks):
+            stages.append(Stage(cfg, c_in, s, generator, k))
             c_in = s.widths[-1]
         self.stages = nn.ModuleList(stages)
         fp = []
         if cfg.task == "seg":
-            skip_dims = ([cfg.in_channels]
-                         + [s.widths[-1] for s in cfg.stages[:-1]])
+            skip_dims = [c0] + [s.widths[-1] for s in cfg.stages[:-1]]
             up_dim = cfg.stages[-1].widths[-1]
             for i, widths in enumerate(cfg.fp_widths):
-                fp.append(MLP(up_dim + skip_dims[-(i + 1)], widths, generator))
+                fp.append(MLP(up_dim + skip_dims[-(i + 1)], widths, generator,
+                              cfg.norm))
                 up_dim = widths[-1]
             head_in = up_dim
         else:
             head_in = cfg.stages[-1].widths[-1]
         self.fp = nn.ModuleList(fp)
-        self.head = MLP(head_in, cfg.head_widths, generator)
+        self.head = MLP(head_in, cfg.head_widths, generator, cfg.norm)
         self.out = Dense(cfg.head_widths[-1], cfg.num_classes, generator)
 
 
@@ -178,6 +281,17 @@ def init(cfg: PNNConfig, generator: torch.Generator | None = None,
 def _sa_names(i: int) -> tuple:
     """(plan, sample, group, mlp) span names of SA stage ``i``, made once."""
     return tuple(f"sa{i}.{k}" for k in ("plan", "sample", "group", "mlp"))
+
+
+@functools.lru_cache(maxsize=None)
+def _res_names(i: int, blocks: int, last: bool) -> tuple:
+    """(plan, search, ((gather, mlp) of each block)) span names of SA
+    stage ``i``'s InvResMLP blocks, made once: the level's partition is
+    the next stage's ``sa<i+1>.plan``, or ``sa<i>.res.plan`` after the
+    last stage."""
+    plan = f"sa{i}.res.plan" if last else f"sa{i + 1}.plan"
+    return plan, f"sa{i}.res.group", tuple(
+        (f"sa{i}.res{j}.group", f"sa{i}.res{j}.mlp") for j in range(blocks))
 
 
 @functools.lru_cache(maxsize=None)
@@ -205,7 +319,7 @@ def _stage_points(cfg: PNNConfig, stage: SAStage, coords, feats, valid,
             gmask = slot < cnt.clamp(max=stage.nsample)[..., None]
             gmask = gmask & svalid[..., None]
             gmask = torch.cat([svalid[..., None], gmask[..., 1:]], -1)
-            rel = take(coords, nidx) - centers[:, :, None, :]
+            rel = _offsets(cfg, take(coords, nidx), centers, stage.radius)
             gfeats = torch.cat([rel, take(feats, nidx)], -1)
         ctx = {"mode": "global", "coords": coords, "centers": centers,
                "svalid": svalid}
@@ -223,7 +337,8 @@ def _stage_points(cfg: PNNConfig, stage: SAStage, coords, feats, valid,
                                        chunk=cfg.leaf_chunk)
         feats_sorted = take(feats, part.perm)
         centers = samp.coords
-        rel = bppo.gather(part.coords, nb.idx) - centers[:, :, None, :]
+        rel = _offsets(cfg, bppo.gather(part.coords, nb.idx), centers,
+                       stage.radius)
         gmask = torch.cat([samp.valid[..., None], nb.mask[..., 1:]], -1)
         gfeats = torch.cat([rel, bppo.gather(feats_sorted, nb.idx)], -1)
     return centers, gfeats, gmask, samp.valid, {"mode": "bppo", "part": part,
@@ -249,17 +364,84 @@ def _propagate(cfg: PNNConfig, ctx, coarse_feats, fine_feats):
     return take(merged, inv)
 
 
+def _offsets(cfg: PNNConfig, neighbors, centers, radius: float):
+    """Grouped offsets (B, m, ns, 3) of neighbours from their centres,
+    over ``radius`` with ``normalize_dp``."""
+    rel = neighbors - centers[:, :, None, :]
+    return rel / radius if cfg.normalize_dp else rel
+
+
+def _pool(h, gmask):
+    """Max over the valid neighbours (B, m, ns, C) -> (B, m, C); 0 where a
+    centre has none."""
+    h = torch.where(gmask[..., None], h, -3.0e38)
+    pooled = h.amax(-2)
+    return torch.where(gmask.any(-1, keepdim=True), pooled, 0.0)
+
+
 def _aggregate(stage_p: Stage, gfeats, gmask, variant):
     h = stage_p.mlp(gfeats)                                # (B, m, ns, C')
     if variant == "pointvector":
         h = h * torch.sigmoid(stage_p.vec(gfeats))
-    h = torch.where(gmask[..., None], h, -3.0e38)
-    pooled = h.amax(-2)
-    pooled = torch.where(gmask.any(-1, keepdim=True), pooled, 0.0)
+    pooled = _pool(h, gmask)
     if variant == "pointnext":
         for blk in stage_p.res:
             pooled = pooled + blk(pooled)
     return pooled
+
+
+def _cloud_order(part, idx, mask):
+    """Neighbour rows (B, n, num) in ``part``'s sorted order, indices into
+    it -> the rows of the clouds' own order, indices into that order."""
+    b, n = part.batch, part.n
+    inv = torch.empty((b, n), dtype=torch.int64, device=idx.device)
+    inv.scatter_(1, part.perm.long(),
+                 torch.arange(n, device=idx.device).expand(b, n))
+    return take(part.perm, take(idx, inv)), take(mask, inv)
+
+
+def _res_blocks(cfg: PNNConfig, i: int, stage_p: Stage, coords, f, valid):
+    """SA stage ``i``'s InvResMLP blocks on its own points: coords
+    (B, m, 3), features f (B, m, C), valid (B, m).  One neighbour search
+    for all of them (the same points at the same radius give every block
+    the same neighbours), mapped once to the clouds' order, so no block
+    permutes features; then a gather and the block's layers a block.
+    Returns (f, the level's partition for the next SA stage, None for the
+    global ops)."""
+    s = cfg.stages[i]
+    radius = s.radius * cfg.radius_scaling
+    plan_span, search_span, block_spans = _res_names(
+        i, len(stage_p.blocks), i == len(cfg.stages) - 1)
+    part = None
+    if cfg.point_ops == "global":
+        with obs.span(search_span):
+            nidx, cnt = ref.ball_query(coords, valid, coords, valid, radius,
+                                       s.nsample)
+            slot = torch.arange(s.nsample, device=coords.device)
+            gmask = (slot < cnt.clamp(max=s.nsample)[..., None]) \
+                & valid[..., None]
+            rel = _offsets(cfg, take(coords, nidx), coords, radius)
+    else:
+        with obs.span(plan_span):
+            part = partition(coords, valid, th=cfg.th,
+                             strategy=cfg.strategy, on_overflow="silent")
+        with obs.span(search_span):
+            nidx, gmask = bppo.blockwise_ball_query_points(
+                part, radius=radius, num=s.nsample, w=2 * cfg.th, bs=cfg.th,
+                chunk=cfg.leaf_chunk)
+            # a centre's nearest in-radius neighbour is itself: every
+            # searched point has slot 0 valid, and a point never searched
+            # (invalid, or past th in an overflowing leaf) has none
+            nidx, gmask = _cloud_order(part, nidx, gmask)
+            rel = _offsets(cfg, take(coords, nidx), coords, radius)
+    obs.tally("res_queries")
+    for blk, (gather_span, mlp_span) in zip(stage_p.blocks, block_spans):
+        with obs.span(gather_span):
+            gfeats = torch.cat([rel, take(f, nidx)], -1)
+        with obs.span(mlp_span):
+            f = blk(gfeats, gmask, f)
+        obs.tally("res_blocks")
+    return f, part
 
 
 def apply(params: PNN, cfg: PNNConfig, coords: torch.Tensor,
@@ -279,16 +461,23 @@ def apply(params: PNN, cfg: PNNConfig, coords: torch.Tensor,
         valid = torch.ones((b, n), dtype=torch.bool, device=coords.device)
     if feats is None:
         feats = coords
+    if cfg.stem_width:
+        with obs.span("stem.mlp"):
+            feats = params.stem(feats)
     sizes = cfg.stage_sizes()
     skips = [(coords, feats, valid)]
     ctxs = []
+    part = part0
     for i, s in enumerate(cfg.stages):
         names = _sa_names(i)
         centers, gfeats, gmask, svalid, ctx = _stage_points(
-            cfg, s, *skips[-1], sizes[i + 1], names=names,
-            part=part0 if i == 0 else None)
+            cfg, s, *skips[-1], sizes[i + 1], names=names, part=part)
         with obs.span(names[3]):
             pooled = _aggregate(params.stages[i], gfeats, gmask, cfg.variant)
+        part = None
+        if cfg.variant == "pointnext_invres" and len(params.stages[i].blocks):
+            pooled, part = _res_blocks(cfg, i, params.stages[i], centers,
+                                       pooled, svalid)
         ctxs.append(ctx)
         skips.append((centers, pooled, svalid))
 
@@ -345,3 +534,25 @@ def scene_seg(n=4096, th=256, widths=(32, 32, 64), fp=(64, 64), rate=0.25,
                      n_points=n, point_ops="bppo", th=th,
                      stages=(SAStage(rate, radius, nsample, widths),),
                      fp_widths=(fp,))
+
+
+def pointnext_xl_seg(n=289_000, point_ops="global", th=256, in_channels=3):
+    """PointNeXt-XL for S3DIS segmentation (``cfgs/s3dis/pointnext-xl.yaml``
+    of the PointNeXt repository): stem width 64, blocks [1, 4, 7, 4, 4] at
+    strides [1, 4, 4, 4, 4] (a stem, then four stride-4 SA stages of one
+    layer, ``sa_layers`` 1, followed by 3, 6, 3 and 3 InvResMLP blocks),
+    expansion 4, radius 0.1 doubling a stage with the blocks at twice
+    their stage's, 32 neighbours, ``normalize_dp``, BatchNorm; the decoder
+    back to 64 and a 64-wide head over 13 classes.  The published net
+    takes 4 input channels (RGB and height); ``in_channels`` 3 takes the
+    coordinates."""
+    return PNNConfig(
+        name="pointnext_xl_seg", variant="pointnext_invres", task="seg",
+        num_classes=13, n_points=n, in_channels=in_channels,
+        stages=(SAStage(0.25, 0.1, 32, (128,)), SAStage(0.25, 0.2, 32, (256,)),
+                SAStage(0.25, 0.4, 32, (512,)),
+                SAStage(0.25, 0.8, 32, (1024,))),
+        blocks=(3, 6, 3, 3), expansion=4, stem_width=64,
+        normalize_dp=True, norm="batchnorm", radius_scaling=2.0,
+        fp_widths=((512, 512), (256, 256), (128, 128), (64, 64)),
+        head_widths=(64,), point_ops=point_ops, th=th)

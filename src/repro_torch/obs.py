@@ -47,7 +47,10 @@ times carry the profiler's own cost.
 
 Counters, kept for each engine (``counters``) and summed in ``snapshot``:
 ``microbatches``, ``slots`` (microbatch slots dispatched) and
-``padded_slots`` (those filled with an all-invalid cloud).  The rings keep
+``padded_slots`` (those filled with an all-invalid cloud), the
+``PADDING`` counters; and the model's own counts (``tally``:
+``res_queries``, the InvResMLP neighbour searches, and ``res_blocks``, the
+blocks run), from the first microbatch that counts one.  The rings keep
 the last ``MICROBATCHES`` microbatches and ``REQUESTS`` requests.
 
 Clock.  Span stamps are integer nanoseconds of Unix time, ``time.time_ns``
@@ -77,6 +80,7 @@ import torch
 MICROBATCHES = 4096
 REQUESTS = 16384
 PHASES = ("plan", "point_ops", "mlp")
+PADDING = ("microbatches", "slots", "padded_slots")
 GAP_SPANS = frozenset({"finish", "admit", "stack"})
 
 
@@ -117,7 +121,7 @@ class _Registry:
         self.clock = clock
         self.microbatches = collections.deque(maxlen=MICROBATCHES)
         self.requests = collections.OrderedDict()   # (owner, rid) -> dict
-        self.counters = {}         # owner -> {microbatches, slots, padded}
+        self.counters = {}         # owner -> {PADDING, tallied counts}
         self.pending = []          # records whose device ms are unread
         self.pool = []             # free CUDA events
         self.ids = itertools.count()
@@ -183,6 +187,7 @@ class _Microbatch:
         # boundary; the copy_out end boundary a later gap reads.
         self.gap_from, self.gap_to, self.out = None, -1, -1
         self.leaf_fill = None
+        self.counts = {}           # the model's counts (``tally``)
         self.profiled = torch.autograd._profiler_enabled()
         for r in requests:
             q = _reg.request(owner, r.rid)
@@ -316,6 +321,8 @@ class _Open:
         c["microbatches"] += 1
         c["slots"] += mb.slots
         c["padded_slots"] += mb.padded
+        for k, v in mb.counts.items():
+            c[k] = c.get(k, 0) + v
         _reg.microbatches.append(mb)
         if mb.events is not None:
             _reg.pending.append(mb)
@@ -323,7 +330,7 @@ class _Open:
 
 
 def _zero_counters() -> dict:
-    return {"microbatches": 0, "slots": 0, "padded_slots": 0}
+    return dict.fromkeys(PADDING, 0)
 
 
 def counters(owner: int | None = None) -> dict:
@@ -331,9 +338,17 @@ def counters(owner: int | None = None) -> dict:
     out = _zero_counters()
     for o, c in _reg.counters.items():
         if owner is None or o == owner:
-            for k in out:
-                out[k] += c[k]
+            for k, v in c.items():
+                out[k] = out.get(k, 0) + v
     return out
+
+
+def tally(name: str, k: int = 1) -> None:
+    """Add ``k`` to the open microbatch's count ``name``, which its
+    engine's ``counters`` sum; nothing outside a microbatch."""
+    mb = _active
+    if mb is not None:
+        mb.counts[name] = mb.counts.get(name, 0) + k
 
 
 def new_owner() -> int:

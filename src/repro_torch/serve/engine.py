@@ -51,6 +51,11 @@ from repro_torch.serve.bucketing import DEFAULT_BUCKETS, BucketPolicy
 from repro_torch.serve.plan_cache import PlanCache
 
 
+# ServeConfig's overrides of the model's structure.
+MODEL_FIELDS = ("stages", "fp_widths", "head_widths", "blocks", "expansion",
+                "stem_width", "normalize_dp", "norm", "radius_scaling")
+
+
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Serving-time knobs (model structure + admission + dispatch)."""
@@ -59,6 +64,7 @@ class ServeConfig:
     microbatch: int = 4
     max_wait_s: float = 0.02       # deadline for partial microbatches
     variant: str = "pointnet2"     # pointnet2 | pointnext | pointvector
+                                   # | pointnext_invres
     task: str = "seg"              # cls | seg
     num_classes: int = 6
     th: int = 256                  # fractal threshold (plan-cache key part)
@@ -67,8 +73,17 @@ class ServeConfig:
     leaf_chunk: int | None = None
     mesh: str = "none"             # none | auto (the process world's mesh)
     model_axis: int = 2            # elastic mesh model-axis request
-    stages: tuple | None = None    # override PNNConfig.stages
-    fp_widths: tuple | None = None  # override PNNConfig.fp_widths
+    # Overrides of the PNNConfig fields of the same names (None: its
+    # default).
+    stages: tuple | None = None
+    fp_widths: tuple | None = None
+    head_widths: tuple | None = None
+    blocks: tuple | None = None          # InvResMLP blocks a stage
+    expansion: int | None = None
+    stem_width: int | None = None
+    normalize_dp: bool | None = None
+    norm: str | None = None
+    radius_scaling: float | None = None
     on_overflow: str = "warn"      # partition overflow: warn | silent
 
 
@@ -100,7 +115,7 @@ class ServeEngine:
         self.plans = PlanCache()
         self._clock = clock
         self._obs = obs.new_owner()
-        overrides = {k: getattr(cfg, k) for k in ("stages", "fp_widths")
+        overrides = {k: getattr(cfg, k) for k in MODEL_FIELDS
                      if getattr(cfg, k) is not None}
         self._base = pnn.PNNConfig(
             name=f"serve_{cfg.variant}_{cfg.task}", variant=cfg.variant,
@@ -288,9 +303,11 @@ class ServeEngine:
         a completed window has positive width) and plan-cache counters, on
         this rank's clock, with the world size and the mesh shape; from
         ``repro_torch.obs``, ``padding`` (this engine's microbatches, slots
-        and padded slots) and ``phases``: the median host ms (and on the
-        card device ms) of a microbatch and of its plan, point-op and MLP
-        spans, over this engine's records the registry holds."""
+        and padded slots), ``model`` (the model's own counts, ``obs.tally``:
+        for InvResMLP blocks ``res_queries`` and ``res_blocks``) and
+        ``phases``: the median host ms (and on the card device ms) of a
+        microbatch and of its plan, point-op and MLP spans, over this
+        engine's records the registry holds."""
         buckets = {}
         served, points = 0, 0
         wall = None
@@ -314,6 +331,7 @@ class ServeEngine:
                 "compile_s": self.compile_s.get(b),
             }
         world = None if self.mesh is None else self.mesh.world
+        counts = obs.counters(self._obs)
         return {"impl": self.impl, "device": str(self.device),
                 "world_size": 1 if world is None else world.size,
                 "mesh": None if self.mesh is None else self.mesh.shape,
@@ -322,5 +340,6 @@ class ServeEngine:
                 "mpts_per_s": (points / wall / 1e6
                                if wall is not None else None),
                 "buckets": buckets, "plan_cache": self.plans.stats(),
-                "padding": obs.counters(self._obs),
+                "padding": {k: counts.pop(k) for k in obs.PADDING},
+                "model": counts,
                 "phases": obs.phase_medians(self._obs)}

@@ -50,6 +50,20 @@ def test_kernel_matches_plain_on_the_ladder(cuda_device, name):
 
 
 @pytest.mark.cuda
+def test_ball_query_at_the_stride1_shape(cuda_device):
+    """The InvResMLP blocks' stride-1 search: 256 centres a leaf block over
+    512 window lanes at num 32 (``checks.stride1_ladder``: the leaf's own
+    points as centres, empty, all-invalid and scattered blocks, 255 over
+    509 lanes, chunked against unchunked), the same indices and bitwise
+    the same d2 as the plain version."""
+    calls = checks.stride1_ladder(cuda_device)
+    assert {tuple(a["q"].shape[1:2]) + (a["num"],) for _, a in calls} >= {
+        (256, 32), (255, 32)}
+    for name, args in calls:
+        checks.hold(name, args)
+
+
+@pytest.mark.cuda
 def test_kernels_launch_on_the_card_of_their_tensors(cuda_device):
     """Each kernel on ``cuda:1`` while the process's current card is
     ``cuda:0`` (a rank of a mesh holds another card than the one a

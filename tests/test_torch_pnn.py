@@ -127,6 +127,11 @@ def test_presets_mirror_jax():
         a = getattr(pnn, name)(n=512, point_ops="bppo")
         b = getattr(jpnn, name)(n=512, point_ops="bppo")
         for f in dataclasses.fields(a):
+            if not hasattr(b, f.name):
+                # the port's own fields (pointnext_invres) keep their
+                # defaults in the presets the JAX package has
+                assert getattr(a, f.name) == f.default, f.name
+                continue
             assert getattr(a, f.name) == getattr(b, f.name) or \
                 repr(getattr(a, f.name)) == repr(getattr(b, f.name)), f.name
     s = pnn.scene_seg(n=2048)
