@@ -49,9 +49,11 @@ of which raises on failure:
    random weights): one microbatch of 4 rooms of 289,000 points served
    through ``ServeEngine``, with every kernel's launch count read around
    it (each point-op kernel and the partition launched, one neighbour
-   search a stage), and every kernel call of it (the blocks' stride-1
-   ball queries, 256 centres a leaf block over 512 lanes, among them)
-   held and timed as above;
+   search a stage, one ``local_aggregate`` a block), and every kernel call
+   of it (the blocks' stride-1 ball queries, 256 centres a leaf block over
+   512 lanes, and their pooled local aggregations, beside the unfused
+   take + cat + addmm + ReLU + pool they replace, among them) held and
+   timed as above;
 4. serve 8 mixed-size segmentation requests through ``ServeEngine`` on the
    card (pointnet2 seg, full widths, th=256, buckets 4096/16384/65536,
    microbatch 4, seeded random weights), with every kernel's launch count
@@ -402,6 +404,8 @@ def library_calls(name, args) -> dict:
                 1, wide, g),
             "index_add_": lambda: g.new_zeros((nb * (w + 1), c)).index_add_(
                 0, flat, g2)}
+    if name == "local_aggregate":
+        return unfused_aggregate(args)
     if name != "gather_blocks":
         return {}
     f, idx = args["feats"], args["idx"]
@@ -413,7 +417,33 @@ def library_calls(name, args) -> dict:
             "indexing": lambda: f[rows, idx]}
 
 
+def unfused_aggregate(args) -> dict:
+    """The InvResMLP blocks' local aggregation as the port ran it before
+    ``local_aggregate``: the grouped (B, m, ns, C + 3) tensor by ``take``
+    and ``cat``, the folded layer as one ``addmm``, ReLU and the masked
+    max-pool, here over g with the identity as the layer's feature rows,
+    which is the same function at the same cost.  Nothing where a slot's
+    index lies outside the cloud (``take`` would read past it)."""
+    import torch
+    from repro_torch.core.fractal import take
+    from repro_torch.models import pnn
+    g, nidx, gmask, rel = (args[k] for k in ("g", "nidx", "gmask", "rel"))
+    if bool(((nidx < 0) | (nidx >= g.shape[1])).any()):
+        return {}
+    c = g.shape[2]
+    w = torch.cat([args["w_r"], torch.eye(c, device=g.device)])
+
+    def unfused():
+        grouped = torch.cat([rel, take(g, nidx)], -1)
+        h = torch.relu(torch.addmm(args["bias"], grouped.view(-1, c + 3), w))
+        return pnn._pool(h.view(*grouped.shape[:-1], c), gmask)
+    return {"take+cat+addmm+relu+pool": unfused}
+
+
 def shape_of(name, args):
+    if name == "local_aggregate":
+        b, m, c = args["g"].shape
+        return f"B={b} m={m} C={c} ns={args['nidx'].shape[2]}"
     if name == "fps_blocks":
         nb, bs = args["mask"].shape
         return f"NB={nb} BS={bs} k={args['k']}"
@@ -782,11 +812,14 @@ def phase_invres_xl() -> tuple[dict, dict]:
     ``xl_engine``, with every kernel's launch count read around that run
     (reset just before it) and its kernel calls recorded.  Fails if a
     kernel of SERVED is not launched, if an answer is not finite logits of
-    its room's shape, or if the blocks' searches are not one a stage.  Then
-    every recorded call (the InvResMLP blocks' stride-1 ball queries among
-    them, 256 centres a leaf block over 512 lanes) is held against its
-    plain version and timed by ``hold_and_time``.  Returns (its rows, the
-    run's launches)."""
+    its room's shape, if the blocks' searches are not one a stage, or if
+    ``local_aggregate`` did not launch once a block.  Then every recorded
+    call (the InvResMLP blocks' stride-1 ball queries among them, 256
+    centres a leaf block over 512 lanes, and their local aggregations, the
+    first three at stage 0's B=4 m=72,250 C=128 ns=32) is held against its
+    plain version (max |err| 0) and timed by ``hold_and_time``, with the
+    unfused sequence it replaced as its library call.  Returns (its rows,
+    the run's launches)."""
     import torch
     from repro_torch.data import synthetic
     from repro_torch.kernels import checks, ops
@@ -825,10 +858,14 @@ def phase_invres_xl() -> tuple[dict, dict]:
     if model != want:
         raise AssertionError(f"pointnext-xl: model counts {model}, not "
                              f"{want}")
+    if launches["local_aggregate"] != want["res_blocks"]:
+        raise AssertionError(f"pointnext-xl: local_aggregate launched "
+                             f"{launches['local_aggregate']} times, not once "
+                             f"a block ({want['res_blocks']})")
     del eng, outs
     torch.cuda.empty_cache()
     rows = hold_and_time(rec.calls)
-    missing = set(SERVING) - set(rows)
+    missing = set(SERVING + ("local_aggregate",)) - set(rows)
     if missing:
         raise AssertionError(f"PointNeXt-XL's main path made no call to "
                              f"{sorted(missing)}")
@@ -862,7 +899,8 @@ def report_profile(prof, wall_us: float, title: str, top: int = 8):
     # The kernels of csrc/ live in an anonymous namespace.
     ported = tuple(f"(anonymous namespace)::{k}_kernel"
                    for k in ("fps_warp", "fps", "fps_wide", "ball_query",
-                             "knn", "gather", "scatter_add", "fractal_level"))
+                             "knn", "gather", "scatter_add", "fractal_level",
+                             "local_aggregate"))
     dev = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)

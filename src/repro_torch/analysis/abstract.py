@@ -71,6 +71,9 @@ LAUNCHERS = {
                                    "partition_scatter_kernel",
                                    "partition_slots_kernel",
                                    "partition_final_kernel")),
+    "local_aggregate": ("local_aggregate.cu",
+                        ("local_aggregate_kernel<float4>",
+                         "local_aggregate_kernel<float>")),
 }
 
 # The largest shapes the paths launch (PERF.md's main-path rows and the PNN
@@ -98,6 +101,11 @@ PATH_SHAPES = (
       for b, n, depth in ((4, 4096, 13), (4, 1024, 11), (4, 256, 0),
                           (8, 289000, 18), (8, 72250, 18), (1, 1000000, 17))
       for stage in range(5)),
+    # PointNeXt-XL's four block stages (4 rooms: B, m, C, ns, aligned) and
+    # the float variant at the first.
+    *(("local_aggregate", (4, m, c, 32, 1))
+      for m, c in ((72250, 128), (18062, 256), (4516, 512), (1129, 1024))),
+    ("local_aggregate", (4, 72250, 128, 32, 0)),
 )
 
 

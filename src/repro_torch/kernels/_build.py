@@ -48,6 +48,8 @@ SIGNATURES = {
     "fc_partition": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                      _P],
     "fc_partition_scratch": [_I, _I, _I, _P],
+    # g, nidx, gmask, rel, w_r, bias, out, B, m, C, ns, stream
+    "fc_local_aggregate": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # Query twins of the launchers: the launch geometry of given shapes
     # (shape ints, then an int[6] out), without a launch; a kernel
     # variant's attributes (variant, threads, smem, int[5] out); and the
@@ -61,10 +63,11 @@ SIGNATURES = {
     "fc_scatter_add_geometry": [_I, _I, _I, _I, _P],
     "fc_fractal_level_geometry": [_I, _I, _P],
     "fc_partition_geometry": [_I, _I, _I, _I, _P],   # B, n, depth, stage
+    "fc_local_aggregate_geometry": [_I, _I, _I, _I, _I, _P],  # + aligned
     **{f"fc_{family}_attributes": [_I, _I, _I, _P]
        for family in ("fps_warp", "fps_cta", "fps_wide", "ball_query", "knn",
                       "gather", "scatter_add", "fractal_level",
-                      "partition")},
+                      "partition", "local_aggregate")},
     "fc_device_limits": [_P],
 }
 

@@ -48,10 +48,18 @@ FPS, ball query, kNN and gather also run chunked through ``kernels.ops``
 (``chunk_ladder``), as a model with ``leaf_chunk`` calls them: each chunk
 a view into the middle of the block axis and the last chunk shorter,
 against the plain version on the whole block axis.
+The InvResMLP blocks' pooled local aggregation, ``local_aggregate``, has
+its own (``aggregate_ladder``): C of 128, 256, 512 and 1024 (PointNeXt-XL's
+widths, one float4 a thread at 32 to 256 threads a centre) and 2048 (two a
+thread), ragged C (33, 9, 6) and a g that is not 16-byte aligned (one float
+a thread), ns of 0, 1, 16, 32 and 40, runs of centres that cross a cloud's
+end, centres with no valid slot, an all-masked cloud, and masked slots
+whose index lies outside the cloud (never read).
 
 Rules:
 
-* FPS and gather must match exactly;
+* FPS, gather and the local aggregation must match exactly (the last
+  rounds every float op as its plain version does, in the same order);
 * ball query and kNN must match exactly: the same indices and bitwise the
   same d2 (the kernels round every float op as the plain versions do, and
   ties go to the lowest lane on both sides).  ``check_topk``, which allows
@@ -86,14 +94,15 @@ import torch
 
 from repro_torch.core import fractal
 from repro_torch.kernels import (ball_query, fps, fractal_level, gather, knn,
-                                 ops)
+                                 local_aggregate, ops)
 from repro_torch.kernels.common import INF, sqdist_rows
 
 D2_TOL = 1e-5
 SUM_TOL = 1e-5
 GRAD_REL_TOL = 1e-3
 KERNELS = ("fps_blocks", "ball_query_blocks", "knn_blocks", "gather_blocks",
-           "scatter_add_blocks", "fractal_level_blocks", "partition")
+           "scatter_add_blocks", "fractal_level_blocks", "partition",
+           "local_aggregate")
 LEVEL_DIMS = ((0, 1), (1, 2), (2, 0))
 
 
@@ -214,7 +223,8 @@ def ladder(device) -> list:
     return (calls + fps_ladder(device) + topk_ladder(device)
             + stride1_ladder(device)
             + chunk_ladder(device) + scatter_ladder(device)
-            + level_ladder(device) + partition_ladder(device))
+            + level_ladder(device) + partition_ladder(device)
+            + aggregate_ladder(device))
 
 
 def stride1_ladder(device) -> list:
@@ -330,6 +340,55 @@ def scatter_ladder(device) -> list:
         g=torch.from_numpy(g).to(device),
         idx=torch.from_numpy(idx).to(device), w=128, chunk=3)))
     return calls
+
+
+def aggregate_args(seed, b, m, c, ns, device, *, none=0.05,
+                   masked_cloud=False, misaligned=False) -> dict:
+    """Arguments of one ``local_aggregate`` call: B clouds of m centres,
+    each naming ``ns`` rows near its own (slot 0 itself, as the blocks'
+    search gives it), ~70 % of the slots valid and a ``none`` share of the
+    centres with none; masked slots hold indices outside [0, m) half of
+    the time; ``masked_cloud`` masks every slot of the last cloud;
+    ``misaligned`` puts g 4 bytes past a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(m)[None, :, None]
+    idx = np.clip(i + rng.integers(-24, 25, (b, m, ns)), 0, m - 1)
+    if ns:
+        idx[..., 0] = i[..., 0]
+    mask = rng.random((b, m, ns)) < 0.7
+    if ns:
+        mask[..., 0] = True
+    mask[rng.random((b, m)) < none] = False
+    if masked_cloud:
+        mask[-1] = False
+    far = rng.choice([-7, -1, m, m + 3, 2**31 - 1], (b, m, ns))
+    idx = np.where(~mask & (rng.random((b, m, ns)) < 0.5), far, idx)
+    g = rng.normal(0, 1, (b, m, c)).astype(np.float32)
+    t = lambda x: torch.from_numpy(x).to(device)
+    g_t = t(g)
+    if misaligned:
+        flat = torch.empty(g.size + 1, dtype=torch.float32, device=device)
+        g_t = flat[1:].view(b, m, c)
+        g_t.copy_(t(g))
+    return dict(g=g_t, nidx=t(idx.astype(np.int32)), gmask=t(mask),
+                rel=t(rng.uniform(-1, 1, (b, m, ns, 3)).astype(np.float32)),
+                w_r=t(rng.normal(0, 1, (3, c)).astype(np.float32)),
+                bias=t(rng.normal(-0.5, 0.5, c).astype(np.float32)))
+
+
+def aggregate_ladder(device) -> list:
+    """[("local_aggregate", arguments)] of the local aggregation's cases."""
+    cases = ((2, 70, 33, 16, {}), (2, 70, 33, 32, {}),
+             (3, 130, 128, 32, {}), (2, 90, 256, 32, {}),
+             (2, 40, 512, 32, {}), (1, 40, 1024, 32, {}),
+             (2, 50, 2048, 8, {}), (2, 65, 64, 1, {}),
+             (2, 33, 12, 40, {}), (2, 20, 8, 0, {}),
+             (3, 97, 9, 32, dict(masked_cloud=True, none=0.3)),
+             (2, 130, 128, 32, dict(misaligned=True)),
+             (2, 7, 6, 16, dict(none=0.5)))
+    return [("local_aggregate", aggregate_args(100 + k, b, m, c, ns, device,
+                                               **kw))
+            for k, (b, m, c, ns, kw) in enumerate(cases)]
 
 
 def level_ladder(device) -> list:
@@ -478,6 +537,9 @@ def runners(name: str, args: dict):
                 else (lambda: fractal_level.fractal_level_blocks(c, m, mid,
                                                                  **kw)),
                 lambda: fractal_level.fractal_level_plain(c, m, mid, **kw))
+    if name == "local_aggregate":
+        return (lambda: local_aggregate.local_aggregate(**args),
+                lambda: local_aggregate.local_aggregate_plain(**args))
     if name == "partition":
         c, v = args["coords"], args["valid"]
         kw = dict(th=args["th"], depth=args["depth"], dim0=args["dim0"])
@@ -592,7 +654,7 @@ def hold_result(name: str, args: dict, got, want, tol: float = D2_TOL) -> dict:
                 raise AssertionError(f"partition: {field} differs from the "
                                      f"tensor pass")
         return {"max_abs_err": 0.0, "count_rows": 0}
-    if name in ("fps_blocks", "gather_blocks"):
+    if name in ("fps_blocks", "gather_blocks", "local_aggregate"):
         if not torch.equal(got, want):
             raise AssertionError(f"{name} differs from its plain version at "
                                  f"{int((got != want).sum())} entries")
@@ -702,6 +764,20 @@ def work(name: str, args: dict) -> tuple[float, float]:
         ml, slots = args["ml"], 1 << args["depth"]
         return (b * n * (13 + 17) + b * ml * (8 * 4 + 1)
                 + b * (2 * slots + 1) * 4 + b * 18, 0.0)
+    if name == "local_aggregate":
+        # reads the distinct rows of g that valid slots name, each valid
+        # slot's index and offsets, every mask bit, w_r and the bias;
+        # writes the output; a valid slot costs 8 operations a channel
+        # (three products, four sums, a max)
+        g, idx, msk = args["g"], args["nidx"], args["gmask"]
+        b, m, c = g.shape
+        ok = msk & (idx >= 0) & (idx < m)
+        key = torch.arange(b, device=idx.device)[:, None, None] * m + \
+            idx.long()
+        rows = int(torch.unique(key[ok]).numel())
+        slots = int(ok.sum())
+        return (rows * c * 4 + slots * 16 + msk.numel() + c * 16
+                + b * m * c * 4, float(slots * c) * 8.0)
     if name == "scatter_add_blocks":
         # reads the indices and each in-range cotangent row, writes the
         # whole window tile; one add per in-range (row, channel)
@@ -753,7 +829,7 @@ class Recorder:
                 **{n: wrap(n, f) for n, f in fns.items()})
 
         self._saved = {a: getattr(ops, a) for a in ("_fps", "_bq", "_knn",
-                                                     "_ga")}
+                                                     "_ga", "_la")}
         ops._fps = stand_in(ops._fps, "fps_blocks",
                             lambda c, m, *, k: dict(coords=c, mask=m, k=k))
         ops._bq = stand_in(
@@ -766,6 +842,10 @@ class Recorder:
         ops._ga = stand_in(
             ops._ga, "gather_blocks", lambda f, i: dict(feats=f, idx=i),
             scatter_add_blocks=lambda g, i, *, w: dict(g=g, idx=i, w=w))
+        ops._la = stand_in(
+            ops._la, "local_aggregate",
+            lambda g, nidx, gmask, rel, w_r, bias: dict(
+                g=g, nidx=nidx, gmask=gmask, rel=rel, w_r=w_r, bias=bias))
         return self
 
     def __exit__(self, *exc):

@@ -18,7 +18,11 @@ that pass no gradient on, and so is ``fractal_level_blocks``, whose side
 bits, counts and child extrema get zero cotangents.
 
 ``KERNELS`` also counts the launches of the partition's level pass
-(``kernels/partition.py``), which ``core.fractal.partition`` calls.
+(``kernels/partition.py``), which ``core.fractal.partition`` calls, and of
+``local_aggregate``, the InvResMLP blocks' pooled local aggregation: no
+block-wise op, so it takes no ``chunk``, and no gradient rule on the card,
+where it is inference-only and raises under autograd (its plain version
+differentiates on the CPU).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.kernels import fps as _fps
 from repro_torch.kernels import fractal_level as _fl
 from repro_torch.kernels import gather as _ga
 from repro_torch.kernels import knn as _knn
+from repro_torch.kernels import local_aggregate as _la
 from repro_torch.kernels import partition as _pa
 from repro_torch.kernels.vjp import Gathering, IndexProducer
 
@@ -38,7 +43,8 @@ KERNELS = {"fps_blocks": _fps.fps_blocks,
            "gather_blocks": _ga.gather_blocks,
            "scatter_add_blocks": _ga.scatter_add_blocks,
            "fractal_level_blocks": _fl.fractal_level_blocks,
-           "partition": _pa.partition}
+           "partition": _pa.partition,
+           "local_aggregate": _la.local_aggregate}
 
 
 def launch_counts() -> dict:
@@ -147,3 +153,13 @@ def fractal_level_blocks(coords, mask, mid, *, da: int, db: int,
         lambda c, m, md: _fl.fractal_level_blocks(c, m, md, da=da, db=db),
         (_pts(coords), _mask(mask), mid.to(torch.float32).contiguous()),
         chunk)
+
+
+def local_aggregate(g, nidx, gmask, rel, w_r, bias):
+    """g (B, m, C), nidx (B, m, ns) rows of g, gmask (B, m, ns), rel
+    (B, m, ns, 3), w_r (3, C), bias (C,) -> (B, m, C): the InvResMLP
+    block's local aggregation pooled over each centre's valid slots
+    (``kernels/local_aggregate.py``)."""
+    return _la.local_aggregate(_pts(g), nidx.to(torch.int32).contiguous(),
+                               _mask(gmask), _pts(rel), _pts(w_r),
+                               _pts(bias))

@@ -19,25 +19,29 @@ per-neighbour gating before pooling), and ``pointnext_invres``, PointNeXt's
 published encoder (Qian et al., NeurIPS 2022): each SA stage followed by
 ``blocks[i]`` InvResMLP blocks on the stage's own points.  A block groups
 every point's neighbours within ``radius_scaling`` (PointNeXt's 2) times
-the stage's radius, runs a grouped dense layer and a max-pool (local
-aggregation), then a pointwise C -> ``expansion`` * C -> C pair, adds its
-input and applies a ReLU.  The blocks of a stage search the same points
-at the same radius, so their neighbours are found once a stage; only the
-feature gather runs once a block.  With ``point_ops="bppo"`` that search is block
+the stage's radius, runs a dense layer over each neighbour's offset and
+features and a max-pool (local aggregation), then a pointwise C ->
+``expansion`` * C -> C pair, adds its input and applies a ReLU.  The blocks
+of a stage search the same points at the same radius, so their neighbours
+are found once a stage.  With ``point_ops="bppo"`` that search is block
 parallel at stride 1 (``bppo.blockwise_ball_query_points``) over the
-level's partition, which the next SA stage reuses.  Options the published
-net needs, off by default: ``stem_width`` (a dense layer on the input
-features before stage 0; its output is level 0's skip), ``normalize_dp``
-(grouped offsets divided by the search radius) and ``norm="batchnorm"``
-(BatchNorm in inference form, folded into each layer's dense weights).
+level's partition, which the next SA stage reuses.  The local
+aggregation's layer is linear before its ReLU, so its feature half runs
+once a point and ``kernels.ops.local_aggregate`` adds each neighbour's
+offset term, applies the ReLU and pools, with no grouped tensor built
+(the blocks need ``norm="batchnorm"``).  Options the published net needs,
+off by default: ``stem_width`` (a dense layer on the input features before
+stage 0; its output is level 0's skip), ``normalize_dp`` (grouped offsets
+divided by the search radius) and ``norm="batchnorm"`` (BatchNorm in
+inference form, folded into each layer's dense weights).
 
 Inside a serving microbatch ``apply`` marks its phases as
 ``repro_torch.obs`` spans: ``stem.mlp``, ``sa<i>.plan`` (a later stage's
 partition), ``sa<i>.sample``, ``sa<i>.group``, ``sa<i>.mlp``, for the
 InvResMLP blocks ``sa<i>.res.plan`` (the last stage's partition, which no
 SA stage follows), ``sa<i>.res.group`` (the stage's one search) and
-``sa<i>.res<j>.group`` / ``sa<i>.res<j>.mlp`` (block j's gather and its
-layers), ``fp<i>.interpolate``, ``fp<i>.mlp`` and ``head``; and counts the
+``sa<i>.res<j>.mlp`` (block j's local aggregation and layers),
+``fp<i>.interpolate``, ``fp<i>.mlp`` and ``head``; and counts the
 ``res_queries`` and ``res_blocks`` it runs (``obs.tally``).  Elsewhere
 they record nothing.
 """
@@ -52,6 +56,7 @@ from torch import nn
 from repro_torch import obs
 from repro_torch.core import bppo, ref
 from repro_torch.core.fractal import partition, take
+from repro_torch.kernels import ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,21 +197,32 @@ class MLP(nn.ModuleList):
 
 class InvResMLP(nn.Module):
     """PointNeXt's inverted-residual block on C channels: local
-    aggregation (``la``: a dense layer over each point's grouped offsets
-    and neighbour features, max-pooled), then ``pw1`` (C -> expansion * C,
-    ReLU) and ``pw2`` (back to C, no ReLU), the block's input added, and a
-    ReLU."""
+    aggregation (``la``: a dense layer over each neighbour's offset and
+    features, ``cat([rel, f_j])``, max-pooled), then ``pw1`` (C ->
+    expansion * C, ReLU) and ``pw2`` (back to C, no ReLU), the block's
+    input added, and a ReLU.  ``la``'s BatchNorm is folded into its weights
+    W and bias b as ``Layer`` folds it; then W [rel ; f_j] + b = rel . W[:3]
+    + (f @ W[3:])[j] + b, so the feature half runs once a point and
+    ``ops.local_aggregate`` does the rest without a grouped tensor."""
 
     def __init__(self, c: int, expansion: int, norm: str,
                  generator: torch.Generator):
         super().__init__()
+        if norm != "batchnorm":
+            raise ValueError(f"InvResMLP blocks need norm 'batchnorm' (their "
+                             f"local aggregation splits the folded layer), "
+                             f"got {norm!r}")
         self.la = Layer(c + 3, c, generator, norm)
         self.pw1 = Layer(c, c * expansion, generator, norm)
         self.pw2 = Layer(c * expansion, c, generator, norm)
 
-    def forward(self, gfeats, gmask, f):
-        """gfeats (B, m, ns, C + 3), gmask (B, m, ns), f (B, m, C)."""
-        g = _pool(self.la(gfeats), gmask)
+    def forward(self, f, nidx, gmask, rel):
+        """f (B, m, C); nidx (B, m, ns) int32, each centre's neighbour rows
+        of f; gmask (B, m, ns); rel (B, m, ns, 3) their offsets."""
+        scale, shift = self.la.bn.affine()
+        w = self.la.dense.w * scale
+        g = ops.local_aggregate(f @ w[3:], nidx, gmask, rel, w[:3],
+                                self.la.dense.b * scale + shift)
         return torch.relu(f + self.pw2(self.pw1(g), act=False))
 
 
@@ -285,13 +301,12 @@ def _sa_names(i: int) -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def _res_names(i: int, blocks: int, last: bool) -> tuple:
-    """(plan, search, ((gather, mlp) of each block)) span names of SA
-    stage ``i``'s InvResMLP blocks, made once: the level's partition is
-    the next stage's ``sa<i+1>.plan``, or ``sa<i>.res.plan`` after the
-    last stage."""
+    """(plan, search, (each block's span)) names of SA stage ``i``'s
+    InvResMLP blocks, made once: the level's partition is the next stage's
+    ``sa<i+1>.plan``, or ``sa<i>.res.plan`` after the last stage."""
     plan = f"sa{i}.res.plan" if last else f"sa{i + 1}.plan"
     return plan, f"sa{i}.res.group", tuple(
-        (f"sa{i}.res{j}.group", f"sa{i}.res{j}.mlp") for j in range(blocks))
+        f"sa{i}.res{j}.mlp" for j in range(blocks))
 
 
 @functools.lru_cache(maxsize=None)
@@ -404,10 +419,10 @@ def _res_blocks(cfg: PNNConfig, i: int, stage_p: Stage, coords, f, valid):
     """SA stage ``i``'s InvResMLP blocks on its own points: coords
     (B, m, 3), features f (B, m, C), valid (B, m).  One neighbour search
     for all of them (the same points at the same radius give every block
-    the same neighbours), mapped once to the clouds' order, so no block
-    permutes features; then a gather and the block's layers a block.
-    Returns (f, the level's partition for the next SA stage, None for the
-    global ops)."""
+    the same neighbours), mapped once to the clouds' order as int32 rows
+    with their offsets, so no block permutes or gathers features itself;
+    then the block's layers a block.  Returns (f, the level's partition
+    for the next SA stage, None for the global ops)."""
     s = cfg.stages[i]
     radius = s.radius * cfg.radius_scaling
     plan_span, search_span, block_spans = _res_names(
@@ -421,6 +436,7 @@ def _res_blocks(cfg: PNNConfig, i: int, stage_p: Stage, coords, f, valid):
             gmask = (slot < cnt.clamp(max=s.nsample)[..., None]) \
                 & valid[..., None]
             rel = _offsets(cfg, take(coords, nidx), coords, radius)
+            nidx = nidx.to(torch.int32)
     else:
         with obs.span(plan_span):
             part = partition(coords, valid, th=cfg.th,
@@ -434,12 +450,11 @@ def _res_blocks(cfg: PNNConfig, i: int, stage_p: Stage, coords, f, valid):
             # (invalid, or past th in an overflowing leaf) has none
             nidx, gmask = _cloud_order(part, nidx, gmask)
             rel = _offsets(cfg, take(coords, nidx), coords, radius)
+            nidx = nidx.to(torch.int32)
     obs.tally("res_queries")
-    for blk, (gather_span, mlp_span) in zip(stage_p.blocks, block_spans):
-        with obs.span(gather_span):
-            gfeats = torch.cat([rel, take(f, nidx)], -1)
-        with obs.span(mlp_span):
-            f = blk(gfeats, gmask, f)
+    for blk, span in zip(stage_p.blocks, block_spans):
+        with obs.span(span):
+            f = blk(f, nidx, gmask, rel)
         obs.tally("res_blocks")
     return f, part
 
