@@ -14,10 +14,13 @@ points): each kernel call takes this rank's share of the blocks
 every rank continues with the whole; each leaf's result depends on that
 leaf only, so the split leaves the outputs as they were.
 
-All ops work in the permuted (DFT) frame: indices index ``part.coords``;
-map back with ``part.perm``.  JAX's dropped out-of-range scatter writes go
-to one sink slot past the end, which is then sliced off; where JAX relied
-on clamping an out-of-range gather, the index is clamped explicitly.
+All ops work in the partition's sorted (DFT) frame: their indices index
+``part.coords`` and their per-point rows follow it.  A caller that keeps
+the clouds' own order composes an index with ``part.perm``
+(``take(part.perm, idx)``) and moves sorted rows back with
+``fractal.unpermute``.  JAX's dropped out-of-range scatter writes go to
+one sink slot past the end, which is then sliced off; where JAX relied on
+clamping an out-of-range gather, the index is clamped explicitly.
 """
 from __future__ import annotations
 
@@ -283,10 +286,24 @@ def coarse_window_ranges(part: FractalPartition, samp: BWSamples):
     return ca, cb
 
 
-def _interp_slice(part, samp, feats, sl, *, wc, bs, eps):
-    """One leaf slice of block-wise interpolation; returns the scatter
-    payload (positions, blended features, sample indices, weights)."""
-    n = part.n
+def _interp_slices(part: FractalPartition, samp: BWSamples, wc: int):
+    """Per-leaf slice arrays (B, ML) the interpolation chunks over: each
+    leaf's first candidate ``lo``, the end ``cb`` of its parent subtree's
+    coarse samples, and the leaf layout."""
+    ca, cb = coarse_window_ranges(part, samp)
+    own = samp.cum_quota[:, :part.ml].long()
+    quota = samp.quota.long()
+    lo = torch.minimum(torch.maximum(own - ((wc - quota) // 2).clamp(min=0),
+                                     ca),
+                       torch.maximum(ca, cb - wc))
+    return lo, cb, part.is_leaf, part.leaf_start, part.leaf_vsize
+
+
+def _interp_slice(part, samp, sl, *, wc, bs, eps):
+    """3-NN search of one leaf slice's points among its ``wc`` coarse
+    candidates.  Returns (positions (B, c * bs) in the sorted frame, n for
+    a padded lane; candidates (B, c, wc) into the samples; nidx
+    (B, c, bs, 3) into the candidates; IDW weights (B, c, bs, 3))."""
     lo, cb, il, ls, lv = sl
     b, c = lo.shape
     j = torch.arange(wc, device=lo.device)
@@ -305,15 +322,7 @@ def _interp_slice(part, samp, feats, sl, *, wc, bs, eps):
     wgt = torch.where(ok, 1.0 / (nd2 + eps), 0.0)
     wsum = wgt.sum(-1, keepdim=True)
     wgt = torch.where(wsum > 0, wgt / wsum.clamp(min=eps), 0.0)
-    samp_idx = torch.gather(cidx[:, :, None, :].expand(b, c, bs, wc), -1,
-                            nidx.long())                    # into samples
-    cf = feats.shape[-1]
-    vals = _on_blocks(kops.gather_blocks, _flat(take(feats, cidx)),
-                      nidx.reshape(b * c, bs * 3))
-    vals = vals.reshape(b, c, bs, 3, cf)
-    blended = (vals * wgt[..., None]).sum(-2)               # (B, c, bs, C)
-    flat_pos = torch.where(fmask, fidx, n).reshape(b, -1)
-    return flat_pos, blended, samp_idx, wgt
+    return torch.where(fmask, fidx, part.n).reshape(b, -1), cidx, nidx, wgt
 
 
 def blockwise_interpolate(part: FractalPartition, samp: BWSamples,
@@ -323,34 +332,44 @@ def blockwise_interpolate(part: FractalPartition, samp: BWSamples,
     from the compacted samples back to every point, candidates restricted
     to the coarse samples of the leaf's parent subtree.
 
-    ``feats`` (B, k_out, C).  Returns (out (B, n, C) in sorted order,
-    idx3 (B, n, 3), w3 (B, n, 3)).  ``chunk`` runs that many leaves per
-    step, scattering each into the outputs."""
-    n, ml = part.n, part.ml
-    b = part.batch
-    cf = feats.shape[-1]
-    dev = feats.device
-    ca, cb = coarse_window_ranges(part, samp)
-    own = samp.cum_quota[:, :ml].long()
-    quota = samp.quota.long()
-    lo = torch.minimum(torch.maximum(own - ((wc - quota) // 2).clamp(min=0),
-                                     ca),
-                       torch.maximum(ca, cb - wc))
-    sl = (lo, cb, part.is_leaf, part.leaf_start, part.leaf_vsize)
-
+    ``feats`` (B, k_out, C).  Returns out (B, n, C), the points' blended
+    features in the sorted frame (``fractal.unpermute`` maps them to the
+    clouds' own order).  ``chunk`` runs that many leaves per step,
+    scattering each into ``out``."""
+    b, n, cf = part.batch, part.n, feats.shape[-1]
     # One sink row past the end takes the padded (dropped) positions.
-    out = torch.zeros((b, n + 1, cf), dtype=feats.dtype, device=dev)
-    idx3 = torch.zeros((b, n + 1, 3), dtype=torch.int64, device=dev)
-    w3 = torch.zeros((b, n + 1, 3), dtype=torch.float32, device=dev)
-    for s in kops.leaf_chunks(sl, chunk, dim=1):
-        flat_pos, blended, samp_idx, wgt = _interp_slice(
-            part, samp, feats, s, wc=wc, bs=bs, eps=eps)
-        p = flat_pos[..., None]
-        out.scatter_(1, p.expand(b, p.shape[1], cf), blended.reshape(b, -1, cf))
-        idx3.scatter_(1, p.expand(b, p.shape[1], 3), samp_idx.reshape(b, -1, 3))
-        w3.scatter_(1, p.expand(b, p.shape[1], 3),
-                    wgt.to(torch.float32).reshape(b, -1, 3))
-    return out[:, :n], idx3[:, :n].to(torch.int32), w3[:, :n]
+    out = torch.zeros((b, n + 1, cf), dtype=feats.dtype, device=feats.device)
+    for s in kops.leaf_chunks(_interp_slices(part, samp, wc), chunk, dim=1):
+        pos, cidx, nidx, wgt = _interp_slice(part, samp, s, wc=wc, bs=bs,
+                                             eps=eps)
+        c = cidx.shape[1]
+        vals = _on_blocks(kops.gather_blocks, _flat(take(feats, cidx)),
+                          nidx.reshape(b * c, bs * 3))
+        blended = (vals.reshape(b, c, bs, 3, cf) * wgt[..., None]).sum(-2)
+        out.scatter_(1, pos[..., None].expand(b, pos.shape[1], cf),
+                     blended.reshape(b, -1, cf))
+    return out[:, :n]
+
+
+def blockwise_interpolation_weights(part: FractalPartition,
+                                    samp: BWSamples, *, wc: int, bs: int,
+                                    eps: float = 1e-8,
+                                    chunk: int | None = None):
+    """The 3-NN selection behind ``blockwise_interpolate``: (idx3 (B, n, 3)
+    int32 into the compacted samples, w3 (B, n, 3) the IDW weights), rows
+    in the sorted frame; 0 in both for a point that no leaf block holds."""
+    def weights(s):
+        pos, cidx, nidx, wgt = _interp_slice(part, samp, s, wc=wc, bs=bs,
+                                             eps=eps)
+        b, c = cidx.shape[:2]
+        sidx = torch.gather(cidx[:, :, None, :].expand(b, c, bs, wc), -1,
+                            nidx.long())
+        return pos, sidx.reshape(b, -1, 3), wgt.reshape(b, -1, 3)
+
+    pos, idx3, w3 = _chunked_slices(_interp_slices(part, samp, wc), weights,
+                                    chunk)
+    return (_scatter_rows(part.n, 0, pos, idx3).to(torch.int32),
+            _scatter_rows(part.n, 0.0, pos, w3))
 
 
 def gather(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

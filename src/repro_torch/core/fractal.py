@@ -116,6 +116,18 @@ def take(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return data[rows, flat].reshape(*idx.shape, *data.shape[2:])
 
 
+def unpermute(part: FractalPartition, x: torch.Tensor) -> torch.Tensor:
+    """Rows (B, n, ...) in ``part``'s sorted (DFT) frame -> the same rows in
+    the clouds' own order: ``out[b, perm[b, s]] = x[b, s]``, one indexed
+    write, any dtype, differentiable.  It relies on ``perm`` being a
+    permutation of ``[0, n)`` in every cloud, which holds for every
+    strategy, also where a leaf overflowed at the depth cap or the leaves
+    exceeded ``max_leaves``: a level moves every point, valid or not, and
+    neither case drops one (``tests/test_torch_fractal.py``)."""
+    rows = torch.arange(part.batch, device=x.device)[:, None]
+    return x.new_zeros(x.shape).index_put_((rows, part.perm.long()), x)
+
+
 def _exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x, 1) - x
 

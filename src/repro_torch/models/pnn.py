@@ -11,7 +11,12 @@ Two kinds of point ops: ``point_ops="bppo"``, Fractal partition +
 block-parallel point ops, whose execute steps run the hand-written kernels
 on the card and their plain versions on the CPU; and ``"global"``, the
 O(n^2) baseline of ``core/ref.py`` (the paper's "Original"), plain tensor
-ops on either device, as the JAX package computes it.
+ops on either device, as the JAX package computes it.  Every tensor this
+module holds is in the clouds' own point order.  BPPO's ops work in the
+partition's sorted frame (``core/bppo.py``): their neighbour indices are
+composed with ``part.perm`` into indices of the cloud before anything is
+gathered, and their per-point rows (the InvResMLP search, the FP stage's
+interpolated features) go back through ``fractal.unpermute``.
 
 Variants: ``pointnet2`` (group -> shared MLP -> max-pool), ``pointnext``
 (+ inverted-residual MLP blocks after pooling), ``pointvector`` (learned
@@ -55,7 +60,7 @@ from torch import nn
 
 from repro_torch import obs
 from repro_torch.core import bppo, ref
-from repro_torch.core.fractal import partition, take
+from repro_torch.core.fractal import partition, take, unpermute
 from repro_torch.kernels import ops
 
 
@@ -321,62 +326,58 @@ def _stage_points(cfg: PNNConfig, stage: SAStage, coords, feats, valid,
     (centers (B, n_out, 3), grouped (B, n_out, nsample, C+3), gmask,
     new_valid, ctx); ``names`` are the stage's span names (``_sa_names``);
     ``part`` optionally supplies a precomputed partition of (coords,
-    valid) -- the serving plan (bppo only)."""
+    valid) -- the serving plan (bppo only).  Every tensor is in the
+    clouds' own order: BPPO's neighbour indices into its sorted frame are
+    composed with ``part.perm`` before anything is gathered."""
     plan_span, sample_span, group_span, _ = names
-    if cfg.point_ops == "global":
+    global_ops = cfg.point_ops == "global"
+    if global_ops:
         with obs.span(sample_span):
             sidx, svalid = ref.fps(coords, valid, n_out)
             centers = take(coords, sidx)
-        with obs.span(group_span):
+        ctx = {"mode": "global", "coords": coords, "centers": centers,
+               "svalid": svalid}
+    else:
+        if part is None:
+            with obs.span(plan_span):
+                part = partition(coords, valid, th=cfg.th,
+                                 strategy=cfg.strategy, on_overflow="silent")
+        with obs.span(sample_span):
+            samp = bppo.blockwise_fps(part, rate=stage.rate, k_out=n_out,
+                                      bs=cfg.th)
+        centers, svalid = samp.coords, samp.valid
+        ctx = {"mode": "bppo", "part": part, "samp": samp}
+    with obs.span(group_span):
+        if global_ops:
             nidx, cnt = ref.ball_query(coords, valid, centers, svalid,
                                        stage.radius, stage.nsample)
             slot = torch.arange(stage.nsample, device=coords.device)
-            gmask = slot < cnt.clamp(max=stage.nsample)[..., None]
-            gmask = gmask & svalid[..., None]
-            gmask = torch.cat([svalid[..., None], gmask[..., 1:]], -1)
-            rel = _offsets(cfg, take(coords, nidx), centers, stage.radius)
-            gfeats = torch.cat([rel, take(feats, nidx)], -1)
-        ctx = {"mode": "global", "coords": coords, "centers": centers,
-               "svalid": svalid}
-        return centers, gfeats, gmask, svalid, ctx
-    if part is None:
-        with obs.span(plan_span):
-            part = partition(coords, valid, th=cfg.th,
-                             strategy=cfg.strategy, on_overflow="silent")
-    with obs.span(sample_span):
-        samp = bppo.blockwise_fps(part, rate=stage.rate, k_out=n_out,
-                                  bs=cfg.th)
-    with obs.span(group_span):
-        nb = bppo.blockwise_ball_query(part, samp, radius=stage.radius,
-                                       num=stage.nsample, w=2 * cfg.th,
-                                       chunk=cfg.leaf_chunk)
-        feats_sorted = take(feats, part.perm)
-        centers = samp.coords
-        rel = _offsets(cfg, bppo.gather(part.coords, nb.idx), centers,
-                       stage.radius)
-        gmask = torch.cat([samp.valid[..., None], nb.mask[..., 1:]], -1)
-        gfeats = torch.cat([rel, bppo.gather(feats_sorted, nb.idx)], -1)
-    return centers, gfeats, gmask, samp.valid, {"mode": "bppo", "part": part,
-                                                "samp": samp}
+            mask = (slot < cnt.clamp(max=stage.nsample)[..., None]) \
+                & svalid[..., None]
+        else:
+            nb = bppo.blockwise_ball_query(part, samp, radius=stage.radius,
+                                           num=stage.nsample, w=2 * cfg.th,
+                                           chunk=cfg.leaf_chunk)
+            nidx, mask = take(part.perm, nb.idx), nb.mask
+        gmask = torch.cat([svalid[..., None], mask[..., 1:]], -1)
+        rel = _offsets(cfg, take(coords, nidx), centers, stage.radius)
+        gfeats = torch.cat([rel, take(feats, nidx)], -1)
+    return centers, gfeats, gmask, svalid, ctx
 
 
 def _propagate(cfg: PNNConfig, ctx, coarse_feats, fine_feats):
-    """FP stage: interpolate coarse feats onto the fine cloud (3-NN IDW)."""
+    """FP stage: interpolate coarse feats onto the fine cloud (3-NN IDW),
+    the result in the fine cloud's own order beside its skip features."""
     if ctx["mode"] == "global":
         out, _, _ = ref.interpolate_3nn(ctx["coords"], ctx["centers"],
                                         ctx["svalid"], coarse_feats)
-        return torch.cat([out, fine_feats], -1)
-    part, samp = ctx["part"], ctx["samp"]
-    wc = max(16, int(2 * cfg.th * cfg.stages[0].rate))
-    out_sorted, _, _ = bppo.blockwise_interpolate(
-        part, samp, coarse_feats, wc=wc, bs=cfg.th, chunk=cfg.leaf_chunk)
-    merged = torch.cat([out_sorted, take(fine_feats, part.perm)], -1)
-    # back to the fine cloud's original order
-    b, n = part.batch, part.n
-    ar = torch.arange(n, device=merged.device).expand(b, n)
-    inv = torch.zeros((b, n), dtype=torch.int64, device=merged.device)
-    inv.scatter_(1, part.perm.long(), ar)
-    return take(merged, inv)
+    else:
+        part = ctx["part"]
+        wc = max(16, int(2 * cfg.th * cfg.stages[0].rate))
+        out = unpermute(part, bppo.blockwise_interpolate(
+            part, ctx["samp"], coarse_feats, wc=wc, bs=cfg.th,
+            chunk=cfg.leaf_chunk))
+    return torch.cat([out, fine_feats], -1)
 
 
 def _offsets(cfg: PNNConfig, neighbors, centers, radius: float):
@@ -405,16 +406,6 @@ def _aggregate(stage_p: Stage, gfeats, gmask, variant):
     return pooled
 
 
-def _cloud_order(part, idx, mask):
-    """Neighbour rows (B, n, num) in ``part``'s sorted order, indices into
-    it -> the rows of the clouds' own order, indices into that order."""
-    b, n = part.batch, part.n
-    inv = torch.empty((b, n), dtype=torch.int64, device=idx.device)
-    inv.scatter_(1, part.perm.long(),
-                 torch.arange(n, device=idx.device).expand(b, n))
-    return take(part.perm, take(idx, inv)), take(mask, inv)
-
-
 def _res_blocks(cfg: PNNConfig, i: int, stage_p: Stage, coords, f, valid):
     """SA stage ``i``'s InvResMLP blocks on its own points: coords
     (B, m, 3), features f (B, m, C), valid (B, m).  One neighbour search
@@ -428,29 +419,28 @@ def _res_blocks(cfg: PNNConfig, i: int, stage_p: Stage, coords, f, valid):
     plan_span, search_span, block_spans = _res_names(
         i, len(stage_p.blocks), i == len(cfg.stages) - 1)
     part = None
-    if cfg.point_ops == "global":
-        with obs.span(search_span):
+    if cfg.point_ops == "bppo":
+        with obs.span(plan_span):
+            part = partition(coords, valid, th=cfg.th,
+                             strategy=cfg.strategy, on_overflow="silent")
+    with obs.span(search_span):
+        if part is None:
             nidx, cnt = ref.ball_query(coords, valid, coords, valid, radius,
                                        s.nsample)
             slot = torch.arange(s.nsample, device=coords.device)
             gmask = (slot < cnt.clamp(max=s.nsample)[..., None]) \
                 & valid[..., None]
-            rel = _offsets(cfg, take(coords, nidx), coords, radius)
-            nidx = nidx.to(torch.int32)
-    else:
-        with obs.span(plan_span):
-            part = partition(coords, valid, th=cfg.th,
-                             strategy=cfg.strategy, on_overflow="silent")
-        with obs.span(search_span):
+        else:
             nidx, gmask = bppo.blockwise_ball_query_points(
                 part, radius=radius, num=s.nsample, w=2 * cfg.th, bs=cfg.th,
                 chunk=cfg.leaf_chunk)
             # a centre's nearest in-radius neighbour is itself: every
             # searched point has slot 0 valid, and a point never searched
             # (invalid, or past th in an overflowing leaf) has none
-            nidx, gmask = _cloud_order(part, nidx, gmask)
-            rel = _offsets(cfg, take(coords, nidx), coords, radius)
-            nidx = nidx.to(torch.int32)
+            nidx = unpermute(part, take(part.perm, nidx))
+            gmask = unpermute(part, gmask)
+        rel = _offsets(cfg, take(coords, nidx), coords, radius)
+        nidx = nidx.to(torch.int32)
     obs.tally("res_queries")
     for blk, span in zip(stage_p.blocks, block_spans):
         with obs.span(span):

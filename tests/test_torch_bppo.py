@@ -76,9 +76,11 @@ def port_pipeline(pts, valid, feats, chunk=None):
                                    chunk=chunk)
     kn = bppo.blockwise_knn(part, samp, k=3, w=W, chunk=chunk)
     ranges = bppo.coarse_window_ranges(part, samp)
-    interp = bppo.blockwise_interpolate(part, samp, feats, wc=WC, bs=TH,
-                                        chunk=chunk)
-    return samp, bq, kn, ranges, interp
+    out = bppo.blockwise_interpolate(part, samp, feats, wc=WC, bs=TH,
+                                     chunk=chunk)
+    idx3, w3 = bppo.blockwise_interpolation_weights(part, samp, wc=WC, bs=TH,
+                                                    chunk=chunk)
+    return samp, bq, kn, ranges, (out, idx3, w3)
 
 
 @pytest.fixture(scope="module")

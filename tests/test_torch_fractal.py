@@ -174,3 +174,40 @@ def test_argument_checks():
         fr.partition(pts, th=4, on_overflow="loud")
     with pytest.raises(ValueError, match="B, n, 3"):
         fr.partition(pts[0], th=4)
+
+
+# (strategy, th, depth, max_leaves_, what the case must show): the four
+# strategies, a depth cap that leaves overflowing leaves, and fewer leaf
+# slots than the partition has leaves.
+UNPERMUTE_CASES = [(s, 32, 5, None, None) for s in fr.STRATEGIES] + [
+    (fr.FRACTAL, 8, 2, None, "overflowed"),
+    (fr.FRACTAL, 32, 5, 3, "leaf_capacity_exceeded"),
+]
+
+
+@pytest.mark.parametrize("case", UNPERMUTE_CASES,
+                         ids=lambda c: c[4] or c[0])
+def test_unpermute_inverts_the_sorted_frame(case):
+    """``perm`` is a permutation of [0, n) in every cloud, the partition's
+    coordinates are the clouds' own taken through it, and ``unpermute``
+    brings float, int and bool rows of the sorted frame back to the
+    clouds' order exactly."""
+    strategy, th, depth, ml, flag = case
+    clouds = [padded(s, 384, real) for s, real in ((7, 384), (8, 250))]
+    pts = torch.from_numpy(np.stack([c for c, _ in clouds]))
+    valid = torch.from_numpy(np.stack([v for _, v in clouds]))
+    part = fr.partition(pts, valid, th=th, depth=depth, strategy=strategy,
+                        max_leaves_=ml, on_overflow="silent")
+    if flag is not None:
+        assert bool(getattr(part, flag).all()), flag
+    n = pts.shape[1]
+    assert torch.equal(part.perm.sort(1).values,
+                       torch.arange(n, dtype=part.perm.dtype).expand(2, n))
+    assert torch.equal(part.coords, fr.take(pts, part.perm))
+    gen = torch.Generator().manual_seed(0)
+    for x in (torch.randn((2, n, 5), generator=gen),
+              torch.randint(-9, 9, (2, n, 2), generator=gen,
+                            dtype=torch.int32),
+              torch.rand((2, n), generator=gen) < 0.5):
+        back = fr.unpermute(part, fr.take(x, part.perm))
+        assert back.dtype == x.dtype and torch.equal(back, x)

@@ -149,8 +149,10 @@ def leaf_ops(model_axis, chunk):
         nb = bppo.blockwise_ball_query(part, samp, radius=0.6, num=8, w=64,
                                        chunk=chunk)
         kn = bppo.blockwise_knn(part, samp, k=4, w=64, chunk=chunk)
-        out, idx3, w3 = bppo.blockwise_interpolate(part, samp, feats, wc=48,
-                                                   bs=32, chunk=chunk)
+        out = bppo.blockwise_interpolate(part, samp, feats, wc=48, bs=32,
+                                         chunk=chunk)
+        idx3, w3 = bppo.blockwise_interpolation_weights(part, samp, wc=48,
+                                                        bs=32, chunk=chunk)
     (out ** 2).sum().backward()
     arr = lambda t: t.detach().numpy()  # noqa: E731
     return {"samp_idx": arr(samp.idx), "local": arr(samp.local_idx),
