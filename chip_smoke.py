@@ -34,8 +34,11 @@ of which raises on failure:
    windows with out-of-range, duplicate and chunked rows; partition levels
    under all three (da, db) pairs, split values beyond the extents, lanes
    at the split value, blocks of 32-2048 lanes valid only in each thread's
-   last slot, chunked runs) and on the inputs the serving path gives the
-   four forward kernels in one microbatch of the largest bucket, with the
+   last slot, chunked runs; the FP blend, ``interp_blend``, over odd and
+   float4 widths, overflowing leaves, slots with no leaf, rows outside
+   ``out``, a misaligned ``out``, NaN in every padded lane and a chunked
+   run) and on the inputs the serving path gives the
+   five forward kernels in one microbatch of the largest bucket, with the
    kernel's, the plain version's and the PyTorch library call's median
    times; ``fractal_level_blocks``, on no path, is held and timed on that
    microbatch's stage-0 leaf blocks, each split at its valid midpoint; the
@@ -49,11 +52,16 @@ of which raises on failure:
    random weights): one microbatch of 4 rooms of 289,000 points served
    through ``ServeEngine``, with every kernel's launch count read around
    it (each point-op kernel and the partition launched, one neighbour
-   search a stage, one ``local_aggregate`` a block), and every kernel call
-   of it (the blocks' stride-1 ball queries, 256 centres a leaf block over
-   512 lanes, and their pooled local aggregations, beside the unfused
-   take + cat + addmm + ReLU + pool they replace, among them) held and
-   timed as above;
+   search a stage, one ``local_aggregate`` a block, one ``interp_blend``
+   an FP stage), and every kernel call of it (the blocks' stride-1 ball
+   queries, 256 centres a leaf block over 512 lanes, and their pooled local
+   aggregations, beside the unfused take + cat + addmm + ReLU + pool they
+   replace, among them) held and timed as above; then the FP stages' blend
+   alone at level 0 of the XL cell's and the rooms cell's microbatches (4
+   rooms at 128 channels, 8 at 64, each room's 9,916 leaf blocks of the
+   partition the path makes), held, timed beside the multiply, ``sum`` and
+   ``scatter_`` it replaced, and compared with that sequence's rows bit for
+   bit;
 4. serve 8 mixed-size segmentation requests through ``ServeEngine`` on the
    card (pointnet2 seg, full widths, th=256, buckets 4096/16384/65536,
    microbatch 4, seeded random weights), with every kernel's launch count
@@ -250,10 +258,11 @@ REPLACES = {
 }
 SERVING = ("fps_blocks", "ball_query_blocks", "knn_blocks", "gather_blocks")
 TRAINING = SERVING + ("scatter_add_blocks",)
-# What a served microbatch launches: the point ops (held call by call on
-# the main path's own inputs) and the partition's level pass (held on the
-# main path's clouds by ``phase_partition``).
-SERVED = SERVING + ("partition",)
+# What a served segmentation microbatch launches: the point ops and the FP
+# blend (held call by call on the main path's own inputs) and the
+# partition's level pass (held on the main path's clouds by
+# ``phase_partition``).
+SERVED = SERVING + ("interp_blend", "partition")
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name.rsplit('_', 1)[0]}.cu"
            for name in REPLACES}
 LEVEL_DIMS_TIMED = (0, 1)   # the (da, db) pair whose leaf-block call is timed
@@ -406,6 +415,8 @@ def library_calls(name, args) -> dict:
                 0, flat, g2)}
     if name == "local_aggregate":
         return unfused_aggregate(args)
+    if name == "interp_blend":
+        return former_blend(args)
     if name != "gather_blocks":
         return {}
     f, idx = args["feats"], args["idx"]
@@ -440,7 +451,37 @@ def unfused_aggregate(args) -> dict:
     return {"take+cat+addmm+relu+pool": unfused}
 
 
+def former_blend(args) -> dict:
+    """The FP blend as the port ran it before ``interp_blend``: the product
+    of every lane's three rows with their weights, ``sum(-2)``, and a
+    ``scatter_`` of every lane into a (B, R + 1, C) buffer whose last row
+    takes the lanes that write no row.  The index is widened and the buffer
+    zeroed outside the timed call."""
+    import torch
+    from repro_torch.kernels.interp_blend import occupied_rows
+    out, vals, wgt = args["out"], args["vals"], args["wgt"]
+    b, r, c = out.shape
+    nb, bs = wgt.shape[:2]
+    if nb == 0:
+        return {}
+    row, keep = occupied_rows(r, args["leaf_start"], args["count"], bs)
+    wide = torch.where(keep, row, r).reshape(b, -1, 1).expand(b, -1, c)
+    buf = out.new_zeros((b, r + 1, c))
+    lanes = vals.view(b, nb // b, bs, 3, c)
+    w = wgt.view(b, nb // b, bs, 3, 1)
+
+    def former():
+        blended = (lanes * w).sum(-2)
+        return buf.scatter_(1, wide, blended.view(b, -1, c))
+    return {"mul+sum+scatter_": former}
+
+
 def shape_of(name, args):
+    if name == "interp_blend":
+        b, _, c = args["out"].shape
+        nb, bs = args["wgt"].shape[:2]
+        return (f"B={b} leaves={nb // max(b, 1)} bs={bs} C={c} "
+                f"lanes={int(args['count'].clamp(max=bs).sum())}")
     if name == "local_aggregate":
         b, m, c = args["g"].shape
         return f"B={b} m={m} C={c} ns={args['nidx'].shape[2]}"
@@ -550,11 +591,14 @@ def make_engine(device, params=None):
 def hold_and_time(calls) -> dict:
     """Hold and time every recorded kernel call; returns {kernel name:
     sums over its calls of ms, plain_ms, bytes, ops, library_ms, and the
-    largest error}."""
+    largest error}.  ``calls`` is emptied as it goes, so a call's inputs
+    leave the card once it is timed (the FP stages' gathered rows of a
+    microbatch do not all fit beside the largest call's plain version)."""
     import torch
     from repro_torch.kernels import checks
     rows = {}
-    for name, args in calls:
+    while calls:
+        name, args = calls.pop(0)
         res = checks.hold(name, args)
         run_kernel, run_plain = checks.runners(name, args)
         ms = median_ms(run_kernel, reps=20)
@@ -862,14 +906,64 @@ def phase_invres_xl() -> tuple[dict, dict]:
         raise AssertionError(f"pointnext-xl: local_aggregate launched "
                              f"{launches['local_aggregate']} times, not once "
                              f"a block ({want['res_blocks']})")
+    fp = len(pnn.pointnext_xl_seg().fp_widths)
+    if launches["interp_blend"] != fp:
+        raise AssertionError(f"pointnext-xl: interp_blend launched "
+                             f"{launches['interp_blend']} times, not once "
+                             f"an FP stage ({fp})")
     del eng, outs
     torch.cuda.empty_cache()
     rows = hold_and_time(rec.calls)
-    missing = set(SERVING + ("local_aggregate",)) - set(rows)
+    missing = set(SERVING + ("local_aggregate", "interp_blend")) - set(rows)
     if missing:
         raise AssertionError(f"PointNeXt-XL's main path made no call to "
                              f"{sorted(missing)}")
     return rows, launches
+
+
+def phase_interp_blend() -> dict:
+    """The FP blend alone at level 0 of the XL cell's microbatch (XL_ROOMS
+    rooms, 128 channels) and of the rooms cell's (8 rooms, 64 channels):
+    each room of N_289K points from the port's scene generator, partitioned
+    at th=TH as the path partitions it, its leaf blocks' starts and
+    occupied counts, and the seed's rows and weights.  Each call is held
+    against its plain version, timed by ``hold_and_time`` beside the
+    multiply, ``sum`` and ``scatter_`` it replaced, and its rows compared
+    with that sequence's, bit for bit.  Returns {label: its row}."""
+    import torch
+    from repro_torch.core import fractal
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import checks
+    rows = {}
+    for label, b, c in (("pointnext-xl", XL_ROOMS, 128),
+                        ("pointnext-s", 8, 64)):
+        rooms = torch.stack([synthetic.scene(400 + i, N_289K,
+                                             device="cuda")[0]
+                             for i in range(b)])
+        part = fractal.partition(rooms, th=TH, on_overflow="silent")
+        count = torch.where(part.is_leaf, part.leaf_vsize.clamp(max=TH), 0)
+        args = checks.blend_args(30 + b, part.leaf_start.cpu(), count.cpu(),
+                                 N_289K, TH, c, "cuda")
+        args["out"].zero_()
+        fill = float(count.sum()) / count.numel() / TH
+        del rooms, part
+        kernel = checks.runners("interp_blend", args)[0]()
+        former = former_blend(args)["mul+sum+scatter_"]()[:, :N_289K]
+        same = bool(torch.equal(kernel.view(torch.int32),
+                                former.view(torch.int32)))
+        diff = float((kernel - former).abs().max())
+        del kernel, former
+        torch.cuda.empty_cache()
+        log(f"interp_blend, {label} level 0 ({b} rooms, "
+            f"{args['wgt'].shape[0] // b} leaf blocks a room, fill "
+            f"{100 * fill:.3f} %): the kernel's "
+            f"rows equal the former multiply, sum and scatter_'s bit for "
+            f"bit: {same} (max |diff| {diff:.3g})")
+        row = hold_and_time([("interp_blend", args)])["interp_blend"]
+        rows[label] = dict(row, fill=fill, bits_equal_former=same)
+        del args
+        torch.cuda.empty_cache()
+    return rows
 
 
 def phase_profile(engine):
@@ -900,7 +994,7 @@ def report_profile(prof, wall_us: float, title: str, top: int = 8):
     ported = tuple(f"(anonymous namespace)::{k}_kernel"
                    for k in ("fps_warp", "fps", "fps_wide", "ball_query",
                              "knn", "gather", "scatter_add", "fractal_level",
-                             "local_aggregate"))
+                             "local_aggregate", "interp_blend"))
     dev = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -2081,6 +2175,7 @@ def main() -> int:
     rows.update(phase_level_kernel())
     partition_rows = phase_partition()
     xl_rows, xl_launches = phase_invres_xl()
+    blend_rows = phase_interp_blend()
     phase_global(engine)
     scene_launches = phase_scene(engine.params)
     del engine
@@ -2129,7 +2224,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "partition": {
         "route": "cuda", "source": "src/repro_torch/kernels/csrc/partition.cu",
         "launches": launches["partition"], "calls": partition_rows},
-        "pointnext_xl": {"launches": xl_launches, "kernels": xl_rows}}))
+        "pointnext_xl": {"launches": xl_launches, "kernels": xl_rows},
+        "interp_blend": blend_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

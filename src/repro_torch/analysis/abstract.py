@@ -74,6 +74,9 @@ LAUNCHERS = {
     "local_aggregate": ("local_aggregate.cu",
                         ("local_aggregate_kernel<float4>",
                          "local_aggregate_kernel<float>")),
+    "interp_blend": ("interp_blend.cu",
+                     ("interp_blend_kernel<float4>",
+                      "interp_blend_kernel<float>")),
 }
 
 # The largest shapes the paths launch (PERF.md's main-path rows and the PNN
@@ -106,6 +109,14 @@ PATH_SHAPES = (
     *(("local_aggregate", (4, m, c, 32, 1))
       for m, c in ((72250, 128), (18062, 256), (4516, 512), (1129, 1024))),
     ("local_aggregate", (4, 72250, 128, 32, 0)),
+    # The FP stages' blend (NB, bs, C, aligned): a PointNeXt-XL microbatch's
+    # four levels (4 rooms, 1024/512/256/128 channels onto levels 3-0), a
+    # rooms microbatch's level 0 (8 rooms, 64 channels), and the float
+    # variant at an odd width.
+    *(("interp_blend", (4 * ml, 256, c, 1))
+      for ml, c in ((185, 1024), (758, 512), (3041, 256), (9916, 128))),
+    ("interp_blend", (8 * 9916, 256, 64, 1)),
+    ("interp_blend", (8 * 9916, 256, 33, 1)),
 )
 
 

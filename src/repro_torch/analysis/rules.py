@@ -33,7 +33,7 @@ STATIC_ANNOTATIONS = ("int", "str", "bool", "float", "bytes", "tuple",
                       "frozenset", "type", "None", "Optional")
 
 # The gradient classifications of kernels/vjp.py.
-VJP_CLASSES = ("IndexProducer", "Gathering")
+VJP_CLASSES = ("IndexProducer", "Gathering", "Blending")
 
 # Device names a call must not pin outside the kernel layer.
 DEVICE_LITERALS = ("cpu", "cuda")
@@ -221,9 +221,10 @@ def _vjp_factories(tree):
 
 def check_vjp_completeness(src: SourceFile, active) -> list:
     """Every public op routes through a ``kernels/vjp.py`` classification:
-    ``IndexProducer.apply``, ``Gathering.apply``, or a module function that
-    returns one.  An op that called a kernel wrapper bare would ship
-    without a gradient rule (a raw kernel output has no ``grad_fn``)."""
+    ``IndexProducer.apply``, ``Gathering.apply``, ``Blending.apply``, or a
+    module function that returns one.  An op that called a kernel wrapper
+    bare would ship without a gradient rule (a raw kernel output has no
+    ``grad_fn``)."""
     factories = _vjp_factories(src.tree)
     out = []
     for fn in _public_ops(src.tree):
@@ -233,8 +234,8 @@ def check_vjp_completeness(src: SourceFile, active) -> list:
             out.append(_finding(
                 src, fn, "VJP001",
                 f"public op '{fn.name}' is not classified via "
-                f"kernels/vjp.py (IndexProducer | Gathering): it would "
-                f"ship without a gradient rule"))
+                f"kernels/vjp.py (IndexProducer | Gathering | Blending): "
+                f"it would ship without a gradient rule"))
     return out
 
 

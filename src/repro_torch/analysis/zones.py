@@ -66,7 +66,7 @@ RULE_DOC = {
               "or inject a clock)",
     "TRC001": "lru_cache over parameters that are not statically hashable",
     "VJP001": "public op not routed through kernels/vjp.py "
-              "(IndexProducer | Gathering)",
+              "(IndexProducer | Gathering | Blending)",
     "DSP001": "dispatch by device only: no impl=, no environment, no "
               "fallback around a launch, wrappers branch on on_card",
     "DSP002": "hardcoded device= literal outside the kernel layer",

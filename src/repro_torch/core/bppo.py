@@ -299,10 +299,18 @@ def _interp_slices(part: FractalPartition, samp: BWSamples, wc: int):
     return lo, cb, part.is_leaf, part.leaf_start, part.leaf_vsize
 
 
+def _occupied(sl, bs: int):
+    """(start (B, c), count (B, c)) of one leaf slice: each leaf block's
+    first row in the sorted frame and its occupied lanes, a prefix of the
+    block (``leaf_vsize`` capped at ``bs``; none for a slot that holds no
+    leaf)."""
+    _, _, il, ls, lv = sl
+    return ls, torch.where(il, lv.clamp(max=bs), 0)
+
+
 def _interp_slice(part, samp, sl, *, wc, bs, eps):
     """3-NN search of one leaf slice's points among its ``wc`` coarse
-    candidates.  Returns (positions (B, c * bs) in the sorted frame, n for
-    a padded lane; candidates (B, c, wc) into the samples; nidx
+    candidates.  Returns (candidates (B, c, wc) into the samples; nidx
     (B, c, bs, 3) into the candidates; IDW weights (B, c, bs, 3))."""
     lo, cb, il, ls, lv = sl
     b, c = lo.shape
@@ -313,7 +321,7 @@ def _interp_slice(part, samp, sl, *, wc, bs, eps):
     cmask = cmask & take(samp.valid, cidx)
     cpts = take(samp.coords, cidx)                          # (B, c, wc, 3)
 
-    fine, fmask, fidx = leaf_from(ls, lv, il, part.coords, bs)
+    fine, _, _ = leaf_from(ls, lv, il, part.coords, bs)
     nidx, nd2 = _on_blocks(lambda *a: kops.knn_blocks(*a, k=3), _flat(fine),
                            _flat(cpts), _flat(cmask))
     nidx = nidx.reshape(b, c, bs, 3)
@@ -322,7 +330,7 @@ def _interp_slice(part, samp, sl, *, wc, bs, eps):
     wgt = torch.where(ok, 1.0 / (nd2 + eps), 0.0)
     wsum = wgt.sum(-1, keepdim=True)
     wgt = torch.where(wsum > 0, wgt / wsum.clamp(min=eps), 0.0)
-    return torch.where(fmask, fidx, part.n).reshape(b, -1), cidx, nidx, wgt
+    return cidx, nidx, wgt
 
 
 def blockwise_interpolate(part: FractalPartition, samp: BWSamples,
@@ -334,21 +342,22 @@ def blockwise_interpolate(part: FractalPartition, samp: BWSamples,
 
     ``feats`` (B, k_out, C).  Returns out (B, n, C), the points' blended
     features in the sorted frame (``fractal.unpermute`` maps them to the
-    clouds' own order).  ``chunk`` runs that many leaves per step,
-    scattering each into ``out``."""
+    clouds' own order); a row that no leaf block holds stays 0.  Per leaf
+    chunk (``chunk`` leaves of every cloud a step), the in-window gather
+    kernel fetches each lane's three candidates' rows and the
+    ``interp_blend`` kernel blends them with their weights into ``out``,
+    over the occupied leaf lanes only."""
     b, n, cf = part.batch, part.n, feats.shape[-1]
-    # One sink row past the end takes the padded (dropped) positions.
-    out = torch.zeros((b, n + 1, cf), dtype=feats.dtype, device=feats.device)
+    out = torch.zeros((b, n, cf), dtype=feats.dtype, device=feats.device)
     for s in kops.leaf_chunks(_interp_slices(part, samp, wc), chunk, dim=1):
-        pos, cidx, nidx, wgt = _interp_slice(part, samp, s, wc=wc, bs=bs,
-                                             eps=eps)
+        cidx, nidx, wgt = _interp_slice(part, samp, s, wc=wc, bs=bs, eps=eps)
         c = cidx.shape[1]
         vals = _on_blocks(kops.gather_blocks, _flat(take(feats, cidx)),
                           nidx.reshape(b * c, bs * 3))
-        blended = (vals.reshape(b, c, bs, 3, cf) * wgt[..., None]).sum(-2)
-        out.scatter_(1, pos[..., None].expand(b, pos.shape[1], cf),
-                     blended.reshape(b, -1, cf))
-    return out[:, :n]
+        start, count = _occupied(s, bs)
+        out = kops.interp_blend(out, vals, _flat(wgt), _flat(start),
+                                _flat(count))
+    return out
 
 
 def blockwise_interpolation_weights(part: FractalPartition,
@@ -359,12 +368,16 @@ def blockwise_interpolation_weights(part: FractalPartition,
     int32 into the compacted samples, w3 (B, n, 3) the IDW weights), rows
     in the sorted frame; 0 in both for a point that no leaf block holds."""
     def weights(s):
-        pos, cidx, nidx, wgt = _interp_slice(part, samp, s, wc=wc, bs=bs,
-                                             eps=eps)
+        cidx, nidx, wgt = _interp_slice(part, samp, s, wc=wc, bs=bs, eps=eps)
         b, c = cidx.shape[:2]
+        start, count = _occupied(s, bs)
+        lane = torch.arange(bs, device=start.device)
+        pos = torch.where(lane < count[..., None],
+                          start[..., None].long() + lane, part.n)
         sidx = torch.gather(cidx[:, :, None, :].expand(b, c, bs, wc), -1,
                             nidx.long())
-        return pos, sidx.reshape(b, -1, 3), wgt.reshape(b, -1, 3)
+        return (pos.reshape(b, -1), sidx.reshape(b, -1, 3),
+                wgt.reshape(b, -1, 3))
 
     pos, idx3, w3 = _chunked_slices(_interp_slices(part, samp, wc), weights,
                                     chunk)

@@ -55,11 +55,21 @@ thread), ragged C (33, 9, 6) and a g that is not 16-byte aligned (one float
 a thread), ns of 0, 1, 16, 32 and 40, runs of centres that cross a cloud's
 end, centres with no valid slot, an all-masked cloud, and masked slots
 whose index lies outside the cloud (never read).
+The FP stage's blend, ``interp_blend``, has its own (``blend_ladder``):
+C of 3, 9, 33 (one float a thread), 4, 32, 64, 128, 256 and 1024 (float4,
+1 to 256 threads a lane), blocks of 256, 65 and 33 lanes, leaves that
+overflow their block (rows past ``bs`` keep their values), slots that hold
+no leaf, a cloud with no occupied lane, no blocks at all, lanes whose rows
+fall before row 0 or past the last row (never written), an ``out`` that
+is not 16-byte aligned, rows of ``out`` that no leaf holds (their values
+kept), padded lanes whose rows of vals and wgt are NaN (never read), and
+leaves blended a chunk at a time into one ``out`` against one call.
 
 Rules:
 
-* FPS, gather and the local aggregation must match exactly (the last
-  rounds every float op as its plain version does, in the same order);
+* FPS, gather, the local aggregation and the blend must match exactly
+  (the last two round every float op as their plain versions do, in the
+  same order);
 * ball query and kNN must match exactly: the same indices and bitwise the
   same d2 (the kernels round every float op as the plain versions do, and
   ties go to the lowest lane on both sides).  ``check_topk``, which allows
@@ -93,8 +103,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import fractal
-from repro_torch.kernels import (ball_query, fps, fractal_level, gather, knn,
-                                 local_aggregate, ops)
+from repro_torch.kernels import (ball_query, fps, fractal_level, gather,
+                                 interp_blend, knn, local_aggregate, ops)
 from repro_torch.kernels.common import INF, sqdist_rows
 
 D2_TOL = 1e-5
@@ -102,7 +112,7 @@ SUM_TOL = 1e-5
 GRAD_REL_TOL = 1e-3
 KERNELS = ("fps_blocks", "ball_query_blocks", "knn_blocks", "gather_blocks",
            "scatter_add_blocks", "fractal_level_blocks", "partition",
-           "local_aggregate")
+           "local_aggregate", "interp_blend")
 LEVEL_DIMS = ((0, 1), (1, 2), (2, 0))
 
 
@@ -224,7 +234,8 @@ def ladder(device) -> list:
             + stride1_ladder(device)
             + chunk_ladder(device) + scatter_ladder(device)
             + level_ladder(device) + partition_ladder(device)
-            + aggregate_ladder(device))
+            + aggregate_ladder(device)
+            + blend_ladder(device))
 
 
 def stride1_ladder(device) -> list:
@@ -391,6 +402,91 @@ def aggregate_ladder(device) -> list:
             for k, (b, m, c, ns, kw) in enumerate(cases)]
 
 
+def blend_layout(seed, b, leaves, bs, *, fill=0.5, non_leaf=0.1, overflow=0,
+                 extra_rows=5):
+    """(start (B, leaves) int32, count (B, leaves) int32, rows): a leaf
+    layout as the partition gives it, each cloud's leaves back to back in
+    rows [0, rows - extra_rows) and ``extra_rows`` rows that no leaf holds
+    after them.  A leaf holds 0 to 2 * fill * bs points (its first
+    ``overflow`` leaves more than ``bs``: its count is capped at ``bs``);
+    a ``non_leaf`` share of the slots hold no leaf (count 0, any start)."""
+    rng = np.random.default_rng(seed)
+    size = rng.integers(0, int(2 * fill * bs) + 1, (b, leaves))
+    size[:, :overflow] = bs + rng.integers(1, bs + 1, (b, min(overflow,
+                                                               leaves)))
+    is_leaf = rng.random((b, leaves)) >= non_leaf
+    size[~is_leaf] = 0
+    start = np.cumsum(size, 1) - size
+    rows = int(size.sum(1).max()) + extra_rows
+    start = np.where(is_leaf, start, rng.integers(-9, rows + 9, (b, leaves)))
+    count = np.where(is_leaf, np.minimum(size, bs), 0)
+    t = lambda x: torch.from_numpy(x.astype(np.int32))
+    return t(start), t(count), rows
+
+
+def blend_args(seed, start, count, rows, bs, c, device, *,
+               misaligned=False) -> dict:
+    """Arguments of one ``interp_blend`` call over the layout ``start``,
+    ``count`` (B, leaves): vals (NB, bs * 3, C) and weights (NB, bs, 3)
+    drawn on ``device`` from the seed (a torch generator there: the card
+    and the CPU draw other numbers), NaN on every lane that writes no row
+    (never read), and an ``out`` (B, rows, C) of drawn values (rows the
+    call does not write keep them); ``misaligned`` puts ``out`` 4 bytes
+    past a 16-byte boundary."""
+    b, leaves = start.shape
+    nb = b * leaves
+    start = start.reshape(nb).to(device)
+    count = count.reshape(nb).to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    _, keep = interp_blend.occupied_rows(rows, start, count, bs)
+    vals = torch.randn((nb, bs, 3, c), generator=gen, device=device)
+    vals = vals.masked_fill_(~keep[..., None, None], float("nan"))
+    w = torch.rand((nb, bs, 3), generator=gen, device=device) + 1e-3
+    wgt = (w / w.sum(-1, keepdim=True)).masked_fill_(~keep[..., None],
+                                                       float("nan"))
+    out = torch.randn((b, rows, c), generator=gen, device=device)
+    if misaligned:
+        flat = torch.empty(out.numel() + 1, dtype=torch.float32,
+                           device=device)
+        flat[1:].copy_(out.reshape(-1))
+        out = flat[1:].view(b, rows, c)
+    return dict(vals=vals.view(nb, bs * 3, c), wgt=wgt, leaf_start=start,
+                count=count, out=out)
+
+
+def blend_ladder(device) -> list:
+    """[("interp_blend", arguments)] of the blend's cases."""
+    calls = []
+    for k, (b, leaves, bs, c, kw) in enumerate((
+            (2, 5, 256, 128, dict(overflow=1)),
+            (2, 6, 256, 32, {}), (3, 4, 65, 64, dict(overflow=2)),
+            (2, 3, 33, 256, dict(fill=0.9)), (1, 3, 65, 1024, {}),
+            (2, 5, 65, 4, {}), (2, 7, 33, 3, dict(non_leaf=0.4)),
+            (2, 4, 256, 9, dict(overflow=1)), (3, 3, 65, 33, {}))):
+        start, count, rows = blend_layout(200 + k, b, leaves, bs, **kw)
+        calls.append(("interp_blend", blend_args(300 + k, start, count, rows,
+                                                 bs, c, device)))
+    start, count, rows = blend_layout(210, 3, 4, 65)
+    count[1] = 0                                        # no occupied lane
+    calls.append(("interp_blend", blend_args(310, start, count, rows, 65, 64,
+                                             device)))
+    start, count, rows = blend_layout(211, 2, 4, 65, extra_rows=0)
+    calls.append(("interp_blend", blend_args(311, start, count, rows, 65, 128,
+                                             device, misaligned=True)))
+    # rows outside [0, rows): lanes before row 0 and past the last row
+    start = torch.tensor([[-3, 10, 45], [-70, 0, 48]], dtype=torch.int32)
+    count = torch.tensor([[5, 5, 10], [65, 7, 65]], dtype=torch.int32)
+    calls.append(("interp_blend", blend_args(312, start, count, 50, 65, 32,
+                                             device)))
+    calls.append(("interp_blend", blend_args(
+        313, torch.zeros((0, 3), dtype=torch.int32),
+        torch.zeros((0, 3), dtype=torch.int32), 7, 65, 32, device)))
+    start, count, rows = blend_layout(214, 3, 7, 65, overflow=1)
+    calls.append(("interp_blend", dict(blend_args(314, start, count, rows, 65,
+                                                  64, device), chunk=3)))
+    return calls
+
+
 def level_ladder(device) -> list:
     """[("fractal_level_blocks", arguments)] of the partition-level cases."""
     calls = []
@@ -509,6 +605,20 @@ def _gather_grad(g, idx, w, chunk):
     return df
 
 
+def _blend_chunks(chunk, out, vals, wgt, leaf_start, count):
+    """``ops.interp_blend`` over ``chunk`` leaves of every cloud at a time,
+    into ``out``, as ``core.bppo.blockwise_interpolate`` calls it with a
+    leaf chunk."""
+    b = out.shape[0]
+    per = lambda x: x.reshape(b, -1, *x.shape[1:])
+    for v, w, s, k in ops.leaf_chunks((per(vals), per(wgt), per(leaf_start),
+                                       per(count)), chunk, dim=1):
+        out = ops.interp_blend(out, v.reshape(-1, *v.shape[2:]),
+                               w.reshape(-1, *w.shape[2:]), s.reshape(-1),
+                               k.reshape(-1))
+    return out
+
+
 def runners(name: str, args: dict):
     """(kernel call, plain call) on one call's arguments; with ``chunk``
     the kernel runs through ``kernels.ops`` that many blocks at a time,
@@ -540,6 +650,16 @@ def runners(name: str, args: dict):
     if name == "local_aggregate":
         return (lambda: local_aggregate.local_aggregate(**args),
                 lambda: local_aggregate.local_aggregate_plain(**args))
+    if name == "interp_blend":
+        # The blend writes in place: the kernel into one copy of ``out``,
+        # made here (a repeated call rewrites the same rows), the plain
+        # version into a fresh copy a call.
+        a = {k: v for k, v in args.items() if k != "chunk"}
+        own = dict(a, out=a["out"].clone())
+        return ((lambda: _blend_chunks(chunk, **own)) if chunk
+                else (lambda: interp_blend.interp_blend(**own)),
+                lambda: interp_blend.interp_blend_plain(
+                    **dict(a, out=a["out"].clone())))
     if name == "partition":
         c, v = args["coords"], args["valid"]
         kw = dict(th=args["th"], depth=args["depth"], dim0=args["dim0"])
@@ -654,7 +774,8 @@ def hold_result(name: str, args: dict, got, want, tol: float = D2_TOL) -> dict:
                 raise AssertionError(f"partition: {field} differs from the "
                                      f"tensor pass")
         return {"max_abs_err": 0.0, "count_rows": 0}
-    if name in ("fps_blocks", "gather_blocks", "local_aggregate"):
+    if name in ("fps_blocks", "gather_blocks", "local_aggregate",
+                "interp_blend"):
         if not torch.equal(got, want):
             raise AssertionError(f"{name} differs from its plain version at "
                                  f"{int((got != want).sum())} entries")
@@ -785,6 +906,17 @@ def work(name: str, args: dict) -> tuple[float, float]:
         nb, _, c = g.shape
         rows = int(((idx >= 0) & (idx < w)).sum())
         return idx.numel() * 4 + rows * c * 4 + nb * w * c * 4, float(rows * c)
+    if name == "interp_blend":
+        # reads each block's start and count, and each occupied lane's
+        # three neighbour rows and three weights; writes the lane's row of
+        # out; 5 operations a lane and channel (three products, two sums)
+        out, wgt = args["out"], args["wgt"]
+        c = out.shape[2]
+        _, keep = interp_blend.occupied_rows(out.shape[1], args["leaf_start"],
+                                             args["count"], wgt.shape[1])
+        lanes = int(keep.sum())
+        return (wgt.shape[0] * 8 + lanes * (16 * c + 12),
+                float(lanes * c) * 5.0)
     f, idx = args["feats"], args["idx"]
     nb, w, c = f.shape
     ok = (idx >= 0) & (idx < w)
@@ -829,7 +961,7 @@ class Recorder:
                 **{n: wrap(n, f) for n, f in fns.items()})
 
         self._saved = {a: getattr(ops, a) for a in ("_fps", "_bq", "_knn",
-                                                     "_ga", "_la")}
+                                                     "_ga", "_la", "_ib")}
         ops._fps = stand_in(ops._fps, "fps_blocks",
                             lambda c, m, *, k: dict(coords=c, mask=m, k=k))
         ops._bq = stand_in(
@@ -846,6 +978,11 @@ class Recorder:
             ops._la, "local_aggregate",
             lambda g, nidx, gmask, rel, w_r, bias: dict(
                 g=g, nidx=nidx, gmask=gmask, rel=rel, w_r=w_r, bias=bias))
+        ops._ib = stand_in(
+            ops._ib, "interp_blend",
+            lambda out, vals, wgt, leaf_start, count: dict(
+                vals=vals, wgt=wgt, leaf_start=leaf_start, count=count,
+                out=out))
         return self
 
     def __exit__(self, *exc):

@@ -18,11 +18,15 @@ that pass no gradient on, and so is ``fractal_level_blocks``, whose side
 bits, counts and child extrema get zero cotangents.
 
 ``KERNELS`` also counts the launches of the partition's level pass
-(``kernels/partition.py``), which ``core.fractal.partition`` calls, and of
+(``kernels/partition.py``), which ``core.fractal.partition`` calls; of
 ``local_aggregate``, the InvResMLP blocks' pooled local aggregation: no
 block-wise op, so it takes no ``chunk``, and no gradient rule on the card,
 where it is inference-only and raises under autograd (its plain version
-differentiates on the CPU).
+differentiates on the CPU); and of ``interp_blend``, the FP stage's 3-NN
+blend of the gathered rows over the occupied leaf lanes, written into its
+``out`` in place (``core.bppo.blockwise_interpolate`` calls it once a leaf
+chunk, so it takes no ``chunk`` either), which differentiates in ``vals``
+on both devices through ``Blending``.
 """
 from __future__ import annotations
 
@@ -32,10 +36,11 @@ from repro_torch.kernels import ball_query as _bq
 from repro_torch.kernels import fps as _fps
 from repro_torch.kernels import fractal_level as _fl
 from repro_torch.kernels import gather as _ga
+from repro_torch.kernels import interp_blend as _ib
 from repro_torch.kernels import knn as _knn
 from repro_torch.kernels import local_aggregate as _la
 from repro_torch.kernels import partition as _pa
-from repro_torch.kernels.vjp import Gathering, IndexProducer
+from repro_torch.kernels.vjp import Blending, Gathering, IndexProducer
 
 KERNELS = {"fps_blocks": _fps.fps_blocks,
            "ball_query_blocks": _bq.ball_query_blocks,
@@ -44,7 +49,8 @@ KERNELS = {"fps_blocks": _fps.fps_blocks,
            "scatter_add_blocks": _ga.scatter_add_blocks,
            "fractal_level_blocks": _fl.fractal_level_blocks,
            "partition": _pa.partition,
-           "local_aggregate": _la.local_aggregate}
+           "local_aggregate": _la.local_aggregate,
+           "interp_blend": _ib.interp_blend}
 
 
 def launch_counts() -> dict:
@@ -163,3 +169,15 @@ def local_aggregate(g, nidx, gmask, rel, w_r, bias):
     return _la.local_aggregate(_pts(g), nidx.to(torch.int32).contiguous(),
                                _mask(gmask), _pts(rel), _pts(w_r),
                                _pts(bias))
+
+
+def interp_blend(out, vals, wgt, leaf_start, count):
+    """out (B, R, C), vals (NB, bs * 3, C) the gathered neighbour rows of
+    NB = B * leaves leaf blocks, wgt (NB, bs, 3) their IDW weights,
+    leaf_start (NB,) each block's first row of ``out``, count (NB,) its
+    occupied lanes -> ``out``, its occupied lanes' rows set in place to
+    their blend (``kernels/interp_blend.py``); other rows keep their
+    values.  Differentiable in ``vals``."""
+    return Blending.apply(_ib.interp_blend, out, _pts(vals), _pts(wgt),
+                          leaf_start.to(torch.int32).contiguous(),
+                          count.to(torch.int32).contiguous())

@@ -12,6 +12,13 @@ carry a useful gradient:
   distances that depend on coordinates only, never on parameters.  Every
   output is marked non-differentiable, so no gradient reaches any input
   (the JAX package's zero cotangents).
+* ``Blending``: ``interp_blend`` writes the FP stage's blended rows into
+  ``out`` in place and differentiates in ``vals`` alone:
+  ``g_vals[nb, 3j + k] = wgt[nb, j, k] * g_out[b, leaf_start[nb] + j]`` on
+  an occupied lane, 0 on a padded one (the former multiply-and-sum's
+  products, bit for bit).  The weights come from the kNN's distances, an
+  index producer's output, and need none; the rows the call overwrote pass
+  no gradient back to what ``out`` held.  Plain PyTorch on both devices.
 
 Both take already-specialised callables, so this module knows nothing of
 the dispatch layer (``kernels/ops.py`` wires them).
@@ -19,6 +26,8 @@ the dispatch layer (``kernels/ops.py`` wires them).
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.interp_blend import occupied_rows
 
 
 class IndexProducer(torch.autograd.Function):
@@ -55,3 +64,34 @@ class Gathering(torch.autograd.Function):
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         return None, None, ctx.bwd_fn(g.contiguous(), idx, w=ctx.w), None
+
+
+class Blending(torch.autograd.Function):
+    """``Blending.apply(fn, out, vals, wgt, leaf_start, count)``: ``fn`` (the
+    kernel or its plain version) writes the blended rows into ``out`` (B, R,
+    C) in place, and ``out`` is returned; ``vals`` (NB, bs * 3, C) gets the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, fn, out, vals, wgt, leaf_start, count):
+        fn(out, vals, wgt, leaf_start, count)
+        ctx.mark_dirty(out)
+        ctx.save_for_backward(wgt, leaf_start, count)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        wgt, leaf_start, count = ctx.saved_tensors
+        b, r, c = g.shape
+        nb, bs = wgt.shape[:2]
+        row, keep = occupied_rows(r, leaf_start, count, bs)
+        cloud = (torch.arange(nb, device=g.device)
+                 // (nb // b))[:, None].expand(nb, bs)
+        g_rows = torch.where(keep[..., None], g[cloud, row.clamp(0, r - 1)],
+                             0.0)
+        g_vals = (g_rows[:, :, None, :] * wgt[..., None]).reshape(
+            nb, bs * 3, c)
+        g_out = None
+        if ctx.needs_input_grad[1]:
+            g_out = g.index_put((cloud[keep], row[keep]), g.new_zeros(()))
+        return None, g_out, g_vals, None, None, None

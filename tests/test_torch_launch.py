@@ -223,7 +223,7 @@ def test_run_pnn_cell_row_on_the_cpu(kind):
         pnn_cell.PNN_VARIANTS["pointnext"](n=512, point_ops="bppo", th=32),
         512, 2, kind=kind)
     want = {"fps_blocks": 2, "ball_query_blocks": 2, "knn_blocks": 2,
-            "gather_blocks": 2}
+            "gather_blocks": 2, "interp_blend": 2}
     if kind == "train":
         want["scatter_add_blocks"] = 2
     assert d["kernel_calls"] == want
@@ -241,7 +241,8 @@ def test_run_pnn_cell_holds_every_leaf_chunk(kind):
     the chunked serving step equals the unchunked one."""
     d = pnn_cell.run_pnn_cell("pointnext", TINY, kind=kind, device="cpu",
                               leaf_chunk=3, reps=1, verbose=False)
-    names = {"ball_query_blocks", "knn_blocks", "gather_blocks"}
+    names = {"ball_query_blocks", "knn_blocks", "gather_blocks",
+             "interp_blend"}
     if kind == "train":
         names.add("scatter_add_blocks")
     for name in names:
