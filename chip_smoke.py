@@ -56,7 +56,15 @@ of which raises on failure:
    an FP stage), and every kernel call of it (the blocks' stride-1 ball
    queries, 256 centres a leaf block over 512 lanes, and their pooled local
    aggregations, beside the unfused take + cat + addmm + ReLU + pool they
-   replace, among them) held and timed as above; then the FP stages' blend
+   replace, among them) held and timed as above; then Point Transformer
+   (``pnn.point_transformer_seg``: published widths, 18 blocks, BPPO at
+   th=256, seeded random weights) the same way on a microbatch of 2 rooms:
+   each kernel launched exactly as its structure asks (one stride-1 kNN a
+   level, one FPS and kNN a TransitionDown, one 3-NN kNN, gather and
+   blend a TransitionUp, nothing else but the partition), 5 searches and
+   18 blocks counted, and every kernel call (the five stride-1 kNN
+   searches, 256 queries a leaf block over 512 lanes at k 8 and 16, among
+   them) held and timed; then the FP stages' blend
    alone at level 0 of the XL cell's and the rooms cell's microbatches (4
    rooms at 128 channels, 8 at 64, each room's 9,916 leaf blocks of the
    partition the path makes), held, timed beside the multiply, ``sum`` and
@@ -204,6 +212,7 @@ REQUESTS = 8
 SEED = 0
 N_289K = 289_000
 XL_ROOMS = 4             # a microbatch of the pointnext-xl.rooms-289k cell
+PT_ROOMS = 2             # Point Transformer's microbatch here
 TRAIN_N = 16384          # points a cloud: the middle serving bucket
 TRAIN_BATCH = 8
 TRAIN_STEPS = 20
@@ -575,10 +584,13 @@ def phase_ladder(device):
     for name, args in calls:
         rows += checks.hold(name, args)["count_rows"]
     stride1 = len(checks.stride1_ladder(device))
+    knn1 = len(checks.knn_stride1_ladder(device))
     log(f"ladder: {len(calls)} kernel calls match their plain versions "
         f"(ball query and kNN exactly; {rows} ball-query count rows off by "
         f"their boundary lanes; {stride1} ball queries at the InvResMLP "
-        f"blocks' stride-1 shape, 256 centres over 512 lanes, num 32)")
+        f"blocks' stride-1 shape, 256 centres over 512 lanes, num 32; "
+        f"{knn1} kNN calls at Point Transformer's, 256 queries over 512 "
+        f"lanes, k 8 and 16)")
 
 
 def make_engine(device, params=None):
@@ -918,6 +930,92 @@ def phase_invres_xl() -> tuple[dict, dict]:
     if missing:
         raise AssertionError(f"PointNeXt-XL's main path made no call to "
                              f"{sorted(missing)}")
+    return rows, launches
+
+
+def pt_engine(device, params=None):
+    """Point Transformer (``pnn.point_transformer_seg``: published widths,
+    18 blocks, BPPO at th=TH) behind a ``ServeEngine`` of one
+    289,000-point bucket, PT_ROOMS a microbatch, seeded random weights."""
+    from repro_torch.models import pnn
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.engine import MODEL_FIELDS
+    m = pnn.point_transformer_seg(n=N_289K, point_ops="bppo", th=TH)
+    cfg = ServeConfig(buckets=(N_289K,), microbatch=PT_ROOMS,
+                      variant=m.variant, task=m.task,
+                      num_classes=m.num_classes, th=TH, on_overflow="silent",
+                      **{k: getattr(m, k) for k in MODEL_FIELDS})
+    return ServeEngine(cfg, params=params, seed=SEED, device=device)
+
+
+def phase_point_transformer() -> tuple[dict, dict]:
+    """Point Transformer's main path: one microbatch of PT_ROOMS rooms of
+    289,000 points served through ``pt_engine``, with every kernel's launch
+    count reset just before it and its kernel calls recorded.  Fails if an answer is not finite logits of
+    its room's shape, if the model did not count one search a level and
+    each block once, or if any kernel launched other than its structure
+    asks: ``knn_blocks`` once a level's stride-1 search, once a
+    TransitionDown and once a TransitionUp's 3-NN search; ``fps_blocks``
+    once a TransitionDown; ``gather_blocks`` and ``interp_blend`` once a
+    TransitionUp; the partition at least once; no other (so no point op
+    ran as a plain fallback).  Then every recorded call (the stride-1
+    searches at each level's leaf blocks, 256 queries over 512 lanes at k
+    8 and 16, among them) is held against its plain version and timed by
+    ``hold_and_time`` beside its bound.  Returns (its rows, the run's
+    launches)."""
+    import torch
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import checks, ops
+    from repro_torch.models import pnn, point_transformer
+    rooms = [synthetic.scene(500 + i, N_289K, device="cuda")[0].cpu().numpy()
+             for i in range(PT_ROOMS)]
+    m = pnn.point_transformer_seg(n=N_289K, point_ops="bppo", th=TH)
+    levels, downs = 1 + len(m.stages), len(m.stages)
+    eng = pt_engine(None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    with checks.Recorder() as rec:
+        rids = [eng.submit(r) for r in rooms]
+        eng.flush()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+    outs = [eng.take(rid) for rid in rids]
+    model = eng.stats()["model"]
+    log(f"point-transformer: {PT_ROOMS} x {N_289K} points served in "
+        f"{wall:.3f} s (first microbatch), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches}; model counts {model}; {len(rec.calls)} kernel calls")
+    for rid, out in zip(rids, outs):
+        if out is None or out.shape != (N_289K, 13) or \
+                not np.isfinite(out).all():
+            raise AssertionError(f"point-transformer request {rid}: bad "
+                                 f"result {None if out is None else out.shape}")
+    want = {"pt_searches": levels,
+            "pt_blocks": sum(m.enc_blocks) + levels}
+    if model != want:
+        raise AssertionError(f"point-transformer: model counts {model}, not "
+                             f"{want}")
+    expect = dict.fromkeys(launches, 0)
+    expect.update(knn_blocks=levels + 2 * downs, fps_blocks=downs,
+                  gather_blocks=downs, interp_blend=downs)
+    wrong = {k: (v, expect[k]) for k, v in launches.items()
+             if k != "partition" and v != expect[k]}
+    if wrong or not launches["partition"]:
+        raise AssertionError(f"point-transformer: launches (got, wanted) "
+                             f"{wrong}, partition {launches['partition']}")
+    ks = point_transformer.level_k(m)
+    stride1 = [(a["q"].shape[0], a["num"]) for n, a in rec.calls
+               if n == "knn_blocks" and a["q"].shape[1] == TH
+               and a["window"].shape[1] == 2 * TH]
+    if [k for _, k in stride1] != list(ks):
+        raise AssertionError(f"point-transformer: stride-1 kNN calls "
+                             f"{stride1}, not one a level at k {ks}")
+    del eng, outs
+    torch.cuda.empty_cache()
+    rows = hold_and_time(rec.calls)
     return rows, launches
 
 
@@ -2175,6 +2273,7 @@ def main() -> int:
     rows.update(phase_level_kernel())
     partition_rows = phase_partition()
     xl_rows, xl_launches = phase_invres_xl()
+    pt_rows, pt_launches = phase_point_transformer()
     blend_rows = phase_interp_blend()
     phase_global(engine)
     scene_launches = phase_scene(engine.params)
@@ -2225,6 +2324,7 @@ def main() -> int:
         "route": "cuda", "source": "src/repro_torch/kernels/csrc/partition.cu",
         "launches": launches["partition"], "calls": partition_rows},
         "pointnext_xl": {"launches": xl_launches, "kernels": xl_rows},
+        "point_transformer": {"launches": pt_launches, "kernels": pt_rows},
         "interp_blend": blend_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

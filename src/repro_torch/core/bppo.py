@@ -184,22 +184,41 @@ def blockwise_ball_query(part: FractalPartition, samp: BWSamples, *,
     return _compact_neighbors(samp, g, in_r, cnt, nd2, num)
 
 
-def _bq_points_slice(part, sl, *, r2, radius, num, w, bs):
+def _points_slice(part, sl, *, search, w, bs):
+    """One leaf slice of a stride-1 search: every lane of each leaf block
+    (``bs`` lanes) a query against its leaf's parent window (``w`` lanes).
+    ``search(q, qmask, win, wmask)`` over the flat blocks returns (lidx
+    local to the window, ok) of shape (NB, bs, num).  Returns (each lane's
+    row in the sorted frame, ``part.n`` for a lane that holds no point;
+    its ``num`` indices into the sorted arrays, a slot that is not ok
+    repeating slot 0; ok, false on a lane that holds no point)."""
     ls, lv, ps, pv, il = sl
     b, c = ls.shape
     pts, pmask, pidx = leaf_from(ls, lv, il, part.coords, bs)
     win, wmask, widx = window_from(ls, lv, ps, pv, il, part.coords,
                                    part.valid, w)
-    lidx, nd2, _ = _on_blocks(
-        lambda *a: kops.ball_query_blocks(*a, radius=radius, num=num),
-        _flat(pts), _flat(pmask), _flat(win), _flat(wmask))
+    lidx, ok = search(_flat(pts), _flat(pmask), _flat(win), _flat(wmask))
+    num = lidx.shape[-1]
     lidx = lidx.reshape(b, c, bs, num)
-    nd2 = nd2.reshape(b, c, bs, num).clamp(min=0.0)
-    in_r = (nd2 <= r2) & pmask[..., None]
-    lidx = torch.where(in_r, lidx, lidx[..., :1])
+    ok = ok.reshape(b, c, bs, num) & pmask[..., None]
+    lidx = torch.where(ok, lidx, lidx[..., :1])
     pos = torch.where(pmask, pidx, part.n).reshape(b, -1)
     return (pos, _window_to_global(widx, lidx).reshape(b, -1, num),
-            in_r.reshape(b, -1, num))
+            ok.reshape(b, -1, num))
+
+
+def _stride1(part: FractalPartition, search, *, w: int, bs: int,
+             chunk: int | None):
+    """A stride-1 search (``_points_slice``) over every leaf, ``chunk``
+    leaves of every cloud a step, its rows scattered to the sorted frame:
+    (idx (B, n, num) int32, ok (B, n, num)); the row of a point that no
+    leaf block holds has index 0 and no ok slot."""
+    pos, g, ok = _chunked_slices(
+        (part.leaf_start, part.leaf_vsize, part.parent_start,
+         part.parent_vsize, part.is_leaf),
+        lambda s: _points_slice(part, s, search=search, w=w, bs=bs), chunk)
+    return (_scatter_rows(part.n, 0, pos, g).to(torch.int32),
+            _scatter_rows(part.n, False, pos, ok))
 
 
 def blockwise_ball_query_points(part: FractalPartition, *, radius: float,
@@ -214,15 +233,34 @@ def blockwise_ball_query_points(part: FractalPartition, *, radius: float,
     the in-radius mask; the row of a point that is no centre (invalid, or
     past ``bs`` in an overflowing leaf) holds index 0 and no valid slot.
     ``chunk`` processes that many leaves of every cloud per step."""
-    n = part.n
-    pos, g, in_r = _chunked_slices(
-        (part.leaf_start, part.leaf_vsize, part.parent_start,
-         part.parent_vsize, part.is_leaf),
-        lambda s: _bq_points_slice(part, s, r2=f32_square(radius),
-                                   radius=radius, num=num, w=w, bs=bs),
-        chunk)
-    return (_scatter_rows(n, 0, pos, g).to(torch.int32),
-            _scatter_rows(n, False, pos, in_r))
+    r2 = f32_square(radius)
+
+    def search(q, qmask, win, wmask):
+        lidx, nd2, _ = _on_blocks(
+            lambda *a: kops.ball_query_blocks(*a, radius=radius, num=num),
+            q, qmask, win, wmask)
+        return lidx, nd2.clamp(min=0.0) <= r2
+
+    return _stride1(part, search, w=w, bs=bs, chunk=chunk)
+
+
+def blockwise_knn_points(part: FractalPartition, *, k: int, w: int, bs: int,
+                         chunk: int | None = None):
+    """Block-wise kNN at stride 1 (Point Transformer's blocks): every valid
+    point of every leaf, ``bs`` a leaf block, finds its ``k`` nearest
+    points of its leaf's parent window, itself first.  Returns (idx, mask),
+    (B, n, k) rows in the sorted order as ``blockwise_ball_query_points``
+    gives them: indices into the sorted arrays and which slots hold a
+    neighbour (a window of fewer than ``k`` valid lanes leaves the rest
+    empty, each repeating the point itself); the row of a point that is no
+    query holds index 0 and no valid slot.  ``chunk`` processes that many
+    leaves of every cloud per step."""
+    def search(q, qmask, win, wmask):
+        lidx, nd2 = _on_blocks(lambda *a: kops.knn_blocks(*a, k=k), q, win,
+                               wmask)
+        return lidx, nd2 < INF
+
+    return _stride1(part, search, w=w, bs=bs, chunk=chunk)
 
 
 def _knn_slice(part, sl, *, k, w):

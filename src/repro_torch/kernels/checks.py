@@ -44,6 +44,12 @@ its 512-lane window at ``num`` = 32, with the leaf's own points as the
 centres (each its own nearest), empty and all-invalid blocks, scattered
 masks, lane-misaligned widths (255 centres over 509 lanes), and a run
 chunked through ``ops.ball_query_blocks`` against an unchunked one.
+kNN meets Point Transformer's stride-1 shape (``knn_stride1_ladder``):
+256 queries, the window's own lanes, valid or not, against 512 lanes at
+``k`` = 8 and 16, with empty and all-invalid windows, scattered masks,
+windows of 1 to 16 valid lanes (fewer than ``k``), lattice points repeated
+8 times (bit-equal distances), and a run chunked through
+``ops.knn_blocks`` against an unchunked one.
 FPS, ball query, kNN and gather also run chunked through ``kernels.ops``
 (``chunk_ladder``), as a model with ``leaf_chunk`` calls them: each chunk
 a view into the middle of the block axis and the last chunk shorter,
@@ -231,7 +237,7 @@ def ladder(device) -> list:
                                             wmask=m, radius=0.5, num=16)))
     calls.append(("knn_blocks", dict(q=cen, window=c, wmask=m, num=3)))
     return (calls + fps_ladder(device) + topk_ladder(device)
-            + stride1_ladder(device)
+            + stride1_ladder(device) + knn_stride1_ladder(device)
             + chunk_ladder(device) + scatter_ladder(device)
             + level_ladder(device) + partition_ladder(device)
             + aggregate_ladder(device)
@@ -268,6 +274,44 @@ def stride1_ladder(device) -> list:
     bq(*own(win, wm, 255, 131), win, wm)
     win, wm = blocks(94, 7, 512, device, empty=1)     # chunked by 3
     bq(*own(win, wm, 256, 64), win, wm, chunk=3)
+    return calls
+
+
+def knn_stride1_ladder(device) -> list:
+    """[(name, arguments)] of kNN at the stride-1 shape of Point
+    Transformer's blocks: Q = 256 queries, a whole leaf block of the
+    window's own lanes (every lane a query, valid or not), against W = 512
+    window lanes at ``k`` = 8 and 16."""
+    calls = []
+
+    def knn(win, wm, lo, k, chunk=None):
+        args = dict(q=win[:, lo:lo + 256].contiguous(), window=win,
+                    wmask=wm, num=k)
+        if chunk:
+            args["chunk"] = chunk
+        calls.append(("knn_blocks", args))
+
+    win, wm = blocks(100, 6, 512, device, empty=1)    # prefix fills, 1 empty
+    for k in (8, 16):
+        knn(win, wm, 0, k)
+        knn(win, wm, 256, k)
+    win, wm = scattered(101, 4, 512, device, p=0.3)   # scattered lanes
+    wm[1] = False
+    knn(win, wm, 128, 16)
+    win, wm = blocks(102, 3, 512, device, invalid=True)  # all invalid
+    knn(win, wm, 0, 8)
+    win, _ = scattered(103, 16, 512, device)          # 1-16 valid lanes
+    rng = np.random.default_rng(104)
+    wm = torch.zeros((16, 512), dtype=torch.bool)
+    for b in range(16):
+        wm[b, torch.from_numpy(rng.choice(512, b + 1, replace=False))] = True
+    for k in (8, 16):
+        knn(win, wm.to(device), 64, k)
+    _, _, win, wm = lattice(105, 3, 8, device)        # bit-equal ties
+    for k in (8, 16):
+        knn(win, wm, 128, k)
+    win, wm = blocks(106, 7, 512, device, empty=1)    # chunked by 3
+    knn(win, wm, 200, 16, chunk=3)
     return calls
 
 

@@ -34,8 +34,11 @@ level's partition, which the next SA stage reuses.  The local
 aggregation's layer is linear before its ReLU, so its feature half runs
 once a point and ``kernels.ops.local_aggregate`` adds each neighbour's
 offset term, applies the ReLU and pools, with no grouped tensor built
-(the blocks need ``norm="batchnorm"``).  Options the published net needs,
-off by default: ``stem_width`` (a dense layer on the input features before
+(the blocks need ``norm="batchnorm"``).  ``point_transformer`` (Point
+Transformer, ``models/point_transformer.py``) has a forward of its own:
+``init`` and ``apply`` hand it over, and ``stem_k``, ``enc_blocks`` and
+``share_planes`` are its fields.  Options the
+published net needs, off by default: ``stem_width`` (a dense layer on the input features before
 stage 0; its output is level 0's skip), ``normalize_dp`` (grouped offsets
 divided by the search radius) and ``norm="batchnorm"`` (BatchNorm in
 inference form, folded into each layer's dense weights).
@@ -76,7 +79,7 @@ class SAStage:
 class PNNConfig:
     name: str = "pointnet2"
     variant: str = "pointnet2"       # pointnet2 | pointnext | pointvector
-                                     # | pointnext_invres
+                                     # | pointnext_invres | point_transformer
     task: str = "cls"                # cls | seg
     num_classes: int = 6
     n_points: int = 1024
@@ -99,6 +102,12 @@ class PNNConfig:
     normalize_dp: bool = False       # grouped offsets over the radius
     norm: str = "layernorm"          # layernorm | batchnorm (inference)
     radius_scaling: float = 2.0      # a block's search radius over its SA's
+    # point_transformer (models/point_transformer.py); the defaults leave
+    # the other variants as they are
+    stem_k: int = 0                  # kNN neighbours at level 0 (levels
+                                     # 1+ take their stage's nsample)
+    enc_blocks: tuple = ()           # encoder blocks at each level
+    share_planes: int = 8            # channel groups sharing a weight
 
     def stage_sizes(self):
         sizes = [self.n_points]
@@ -291,6 +300,9 @@ def init(cfg: PNNConfig, generator: torch.Generator | None = None,
     ``repro_torch.convert`` instead."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    if cfg.variant == "point_transformer":
+        from repro_torch.models import point_transformer
+        return point_transformer.PointTransformer(cfg, generator).to(device)
     return PNN(cfg, generator).to(device)
 
 
@@ -299,7 +311,7 @@ def init(cfg: PNNConfig, generator: torch.Generator | None = None,
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _sa_names(i: int) -> tuple:
+def sa_names(i: int) -> tuple:
     """(plan, sample, group, mlp) span names of SA stage ``i``, made once."""
     return tuple(f"sa{i}.{k}" for k in ("plan", "sample", "group", "mlp"))
 
@@ -315,7 +327,7 @@ def _res_names(i: int, blocks: int, last: bool) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def _fp_names(i: int) -> tuple:
+def fp_names(i: int) -> tuple:
     """(interpolate, mlp) span names of FP stage ``i``, made once."""
     return (f"fp{i}.interpolate", f"fp{i}.mlp")
 
@@ -324,7 +336,7 @@ def _stage_points(cfg: PNNConfig, stage: SAStage, coords, feats, valid,
                   n_out, *, names, part=None):
     """One sampling + grouping + gathering round over B clouds.  Returns
     (centers (B, n_out, 3), grouped (B, n_out, nsample, C+3), gmask,
-    new_valid, ctx); ``names`` are the stage's span names (``_sa_names``);
+    new_valid, ctx); ``names`` are the stage's span names (``sa_names``);
     ``part`` optionally supplies a precomputed partition of (coords,
     valid) -- the serving plan (bppo only).  Every tensor is in the
     clouds' own order: BPPO's neighbour indices into its sorted frame are
@@ -466,6 +478,10 @@ def apply(params: PNN, cfg: PNNConfig, coords: torch.Tensor,
         valid = torch.ones((b, n), dtype=torch.bool, device=coords.device)
     if feats is None:
         feats = coords
+    if cfg.variant == "point_transformer":
+        from repro_torch.models import point_transformer
+        return point_transformer.apply(params, cfg, coords, feats, valid,
+                                       part0)
     if cfg.stem_width:
         with obs.span("stem.mlp"):
             feats = params.stem(feats)
@@ -474,7 +490,7 @@ def apply(params: PNN, cfg: PNNConfig, coords: torch.Tensor,
     ctxs = []
     part = part0
     for i, s in enumerate(cfg.stages):
-        names = _sa_names(i)
+        names = sa_names(i)
         centers, gfeats, gmask, svalid, ctx = _stage_points(
             cfg, s, *skips[-1], sizes[i + 1], names=names, part=part)
         with obs.span(names[3]):
@@ -495,7 +511,7 @@ def apply(params: PNN, cfg: PNNConfig, coords: torch.Tensor,
     up = skips[-1][1]
     for i in range(len(cfg.fp_widths)):
         lvl = len(cfg.stages) - 1 - i
-        interpolate_span, mlp_span = _fp_names(i)
+        interpolate_span, mlp_span = fp_names(i)
         with obs.span(interpolate_span):
             merged = _propagate(cfg, ctxs[lvl], up, skips[lvl][1])
         with obs.span(mlp_span):
@@ -561,3 +577,19 @@ def pointnext_xl_seg(n=289_000, point_ops="global", th=256, in_channels=3):
         normalize_dp=True, norm="batchnorm", radius_scaling=2.0,
         fp_widths=((512, 512), (256, 256), (128, 128), (64, 64)),
         head_widths=(64,), point_ops=point_ops, th=th)
+
+
+def point_transformer_seg(n=289_000, point_ops="bppo", th=256,
+                          in_channels=3):
+    """Point Transformer for S3DIS segmentation (Zhao et al., ICCV 2021;
+    ``pointtransformer_seg_repro`` of the authors' repository): planes
+    [32, 64, 128, 256, 512] at strides [1, 4, 4, 4, 4], blocks [2, 3, 4,
+    6, 3], kNN of [8, 16, 16, 16, 16], share_planes 8, 13 classes, built by
+    ``point_transformer.config``.  The published net takes 6 input
+    channels (xyz and RGB); ``in_channels`` 3 takes the coordinates."""
+    from repro_torch.models import point_transformer
+    return point_transformer.config(
+        planes=(32, 64, 128, 256, 512), blocks=(2, 3, 4, 6, 3),
+        nsample=(8, 16, 16, 16, 16), strides=(1, 4, 4, 4, 4),
+        share_planes=8, num_classes=13, n_points=n, in_channels=in_channels,
+        point_ops=point_ops, th=th, name="point_transformer_seg")

@@ -9,10 +9,14 @@ The serving engine opens one record for each microbatch it runs
         forward                       models/pnn.py: apply
           sa<i>.plan (i > 0), sa<i>.sample, sa<i>.group, sa<i>.mlp,
           fp<i>.interpolate, fp<i>.mlp, head
+          (Point Transformer, models/point_transformer.py: also
+          pt<l>.plan, pt<l>.group, pt<l>.enc<j>.attn, pt<l>.enc<j>.mlp,
+          pt<l>.dec.attn, pt<l>.dec.mlp, fp.top.mlp)
 
 Phase classes (``PHASES``): ``plan`` is the stage-0 ``plan`` and every
-later stage's ``sa<i>.plan``; ``point_ops`` every ``*.sample``,
-``*.group`` and ``*.interpolate``; ``mlp`` every ``*.mlp`` and ``head``.
+later ``*.plan``; ``point_ops`` every ``*.sample``, ``*.group`` and
+``*.interpolate``; ``mlp`` every ``*.mlp`` and ``head``; ``attn`` every
+``*.attn``, Point Transformer's vector-attention layers.
 
 A span records its host start and end and its parent, the span that
 encloses it.  On the card it also records a CUDA event, taken from a
@@ -50,7 +54,8 @@ Counters, kept for each engine (``counters``) and summed in ``snapshot``:
 ``padded_slots`` (those filled with an all-invalid cloud), the
 ``PADDING`` counters; and the model's own counts (``tally``:
 ``res_queries``, the InvResMLP neighbour searches, and ``res_blocks``, the
-blocks run), from the first microbatch that counts one.  The rings keep
+blocks run; ``pt_searches`` and ``pt_blocks``, Point Transformer's), from
+the first microbatch that counts one.  The rings keep
 the last ``MICROBATCHES`` microbatches and ``REQUESTS`` requests.
 
 Clock.  Span stamps are integer nanoseconds of Unix time, ``time.time_ns``
@@ -79,7 +84,7 @@ import torch
 
 MICROBATCHES = 4096
 REQUESTS = 16384
-PHASES = ("plan", "point_ops", "mlp")
+PHASES = ("plan", "point_ops", "mlp", "attn")
 PADDING = ("microbatches", "slots", "padded_slots")
 GAP_SPANS = frozenset({"finish", "admit", "stack"})
 
@@ -92,6 +97,8 @@ def phase_of(name: str) -> str | None:
         return "point_ops"
     if name == "head" or name.endswith(".mlp"):
         return "mlp"
+    if name.endswith(".attn"):
+        return "attn"
     return None
 
 

@@ -53,7 +53,8 @@ from repro_torch.serve.plan_cache import PlanCache
 
 # ServeConfig's overrides of the model's structure.
 MODEL_FIELDS = ("stages", "fp_widths", "head_widths", "blocks", "expansion",
-                "stem_width", "normalize_dp", "norm", "radius_scaling")
+                "stem_width", "normalize_dp", "norm", "radius_scaling",
+                "stem_k", "enc_blocks", "share_planes")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +65,7 @@ class ServeConfig:
     microbatch: int = 4
     max_wait_s: float = 0.02       # deadline for partial microbatches
     variant: str = "pointnet2"     # pointnet2 | pointnext | pointvector
-                                   # | pointnext_invres
+                                   # | pointnext_invres | point_transformer
     task: str = "seg"              # cls | seg
     num_classes: int = 6
     th: int = 256                  # fractal threshold (plan-cache key part)
@@ -84,6 +85,9 @@ class ServeConfig:
     normalize_dp: bool | None = None
     norm: str | None = None
     radius_scaling: float | None = None
+    stem_k: int | None = None            # point_transformer's structure
+    enc_blocks: tuple | None = None
+    share_planes: int | None = None
     on_overflow: str = "warn"      # partition overflow: warn | silent
 
 
@@ -304,10 +308,11 @@ class ServeEngine:
         this rank's clock, with the world size and the mesh shape; from
         ``repro_torch.obs``, ``padding`` (this engine's microbatches, slots
         and padded slots), ``model`` (the model's own counts, ``obs.tally``:
-        for InvResMLP blocks ``res_queries`` and ``res_blocks``) and
-        ``phases``: the median host ms (and on the card device ms) of a
-        microbatch and of its plan, point-op and MLP spans, over this
-        engine's records the registry holds."""
+        for InvResMLP blocks ``res_queries`` and ``res_blocks``, for Point
+        Transformer ``pt_searches`` and ``pt_blocks``) and ``phases``: the
+        median host ms (and on the card device ms) of a microbatch and of
+        its plan, point-op, MLP and attention spans, over this engine's
+        records the registry holds."""
         buckets = {}
         served, points = 0, 0
         wall = None

@@ -64,6 +64,21 @@ def test_ball_query_at_the_stride1_shape(cuda_device):
 
 
 @pytest.mark.cuda
+def test_knn_at_the_stride1_shape(cuda_device):
+    """Point Transformer's stride-1 search: 256 queries a leaf block over
+    512 window lanes at k 8 and 16 (``checks.knn_stride1_ladder``: the
+    window's own lanes as queries, empty, all-invalid and scattered
+    windows, fewer valid lanes than k, bit-equal ties, chunked against
+    unchunked), the same indices and bitwise the same d2 as the plain
+    version."""
+    calls = checks.knn_stride1_ladder(cuda_device)
+    assert {tuple(a["q"].shape[1:2]) + (a["window"].shape[1], a["num"])
+            for _, a in calls} == {(256, 512, 8), (256, 512, 16)}
+    for name, args in calls:
+        checks.hold(name, args)
+
+
+@pytest.mark.cuda
 def test_kernels_launch_on_the_card_of_their_tensors(cuda_device):
     """Each kernel on ``cuda:1`` while the process's current card is
     ``cuda:0`` (a rank of a mesh holds another card than the one a

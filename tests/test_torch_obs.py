@@ -128,7 +128,8 @@ def test_every_stage_spans_nest_once_a_microbatch(point_ops):
         else:
             assert rec["leaf_fill"] is None
     ph = obs.phases(recs[0])
-    assert set(ph) == {"microbatch", "plan", "point_ops", "mlp"}
+    assert set(ph) == {"microbatch", "plan", "point_ops", "mlp", "attn"}
+    assert ph["attn"][0] == 0                  # no attention in this net
     assert sum(ph[p][0] for p in obs.PHASES) <= ph["microbatch"][0]
 
 
