@@ -61,10 +61,12 @@ of which raises on failure:
    th=256, seeded random weights) the same way on a microbatch of 2 rooms:
    each kernel launched exactly as its structure asks (one stride-1 kNN a
    level, one FPS and kNN a TransitionDown, one 3-NN kNN, gather and
-   blend a TransitionUp, nothing else but the partition), 5 searches and
-   18 blocks counted, and every kernel call (the five stride-1 kNN
-   searches, 256 queries a leaf block over 512 lanes at k 8 and 16, among
-   them) held and timed; then the FP stages' blend
+   blend a TransitionUp, one ``vector_attention`` a block, nothing else
+   but the partition), 5 searches and 18 blocks counted, the peak device
+   memory logged, and every kernel call (the five stride-1 kNN searches,
+   256 queries a leaf block over 512 lanes at k 8 and 16, and the 18
+   attention layers, beside the PyTorch sequence they replace, among them)
+   held and timed; then the FP stages' blend
    alone at level 0 of the XL cell's and the rooms cell's microbatches (4
    rooms at 128 channels, 8 at 64, each room's 9,916 leaf blocks of the
    partition the path makes), held, timed beside the multiply, ``sum`` and
@@ -426,6 +428,8 @@ def library_calls(name, args) -> dict:
         return unfused_aggregate(args)
     if name == "interp_blend":
         return former_blend(args)
+    if name == "vector_attention":
+        return former_attention(args)
     if name != "gather_blocks":
         return {}
     f, idx = args["feats"], args["idx"]
@@ -485,7 +489,25 @@ def former_blend(args) -> dict:
     return {"mul+sum+scatter_": former}
 
 
+def former_attention(args) -> dict:
+    """Point Transformer's attention layer as the port ran it before
+    ``vector_attention``: its PyTorch sequence over (B, m, k, .) tensors,
+    which ``vector_attention_plain`` keeps, on device time.  A masked
+    slot's index is clamped into the cloud outside the timed call, as the
+    former gather needed."""
+    import torch
+    from repro_torch.kernels.vector_attention import vector_attention_plain
+    m = args["qkv"].shape[1]
+    a = dict(args, nidx=torch.where(args["mask"], args["nidx"], 0).clamp(
+        0, m - 1))
+    return {"former sequence": lambda: vector_attention_plain(**a)}
+
+
 def shape_of(name, args):
+    if name == "vector_attention":
+        b, m, c3 = args["qkv"].shape
+        return (f"B={b} m={m} C={c3 // 3} k={args['nidx'].shape[2]} "
+                f"N={args['w2w'].shape[0]}")
     if name == "interp_blend":
         b, _, c = args["out"].shape
         nb, bs = args["wgt"].shape[:2]
@@ -957,12 +979,13 @@ def phase_point_transformer() -> tuple[dict, dict]:
     asks: ``knn_blocks`` once a level's stride-1 search, once a
     TransitionDown and once a TransitionUp's 3-NN search; ``fps_blocks``
     once a TransitionDown; ``gather_blocks`` and ``interp_blend`` once a
-    TransitionUp; the partition at least once; no other (so no point op
-    ran as a plain fallback).  Then every recorded call (the stride-1
-    searches at each level's leaf blocks, 256 queries over 512 lanes at k
-    8 and 16, among them) is held against its plain version and timed by
-    ``hold_and_time`` beside its bound.  Returns (its rows, the run's
-    launches)."""
+    TransitionUp; ``vector_attention`` once a block; the partition at least
+    once; no other (so no point op ran as a plain fallback).  Then every
+    recorded call (the stride-1 searches at each level's leaf blocks, 256
+    queries over 512 lanes at k 8 and 16, and the 18 attention layers,
+    beside the PyTorch sequence they replace, among them) is held against
+    its plain version and timed by ``hold_and_time`` beside its bound.
+    Returns (its rows, the run's launches)."""
     import torch
     from repro_torch.data import synthetic
     from repro_torch.kernels import checks, ops
@@ -1000,7 +1023,8 @@ def phase_point_transformer() -> tuple[dict, dict]:
                              f"{want}")
     expect = dict.fromkeys(launches, 0)
     expect.update(knn_blocks=levels + 2 * downs, fps_blocks=downs,
-                  gather_blocks=downs, interp_blend=downs)
+                  gather_blocks=downs, interp_blend=downs,
+                  vector_attention=want["pt_blocks"])
     wrong = {k: (v, expect[k]) for k, v in launches.items()
              if k != "partition" and v != expect[k]}
     if wrong or not launches["partition"]:
@@ -1092,7 +1116,8 @@ def report_profile(prof, wall_us: float, title: str, top: int = 8):
     ported = tuple(f"(anonymous namespace)::{k}_kernel"
                    for k in ("fps_warp", "fps", "fps_wide", "ball_query",
                              "knn", "gather", "scatter_add", "fractal_level",
-                             "local_aggregate", "interp_blend"))
+                             "local_aggregate", "interp_blend",
+                             "vector_attention"))
     dev = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)

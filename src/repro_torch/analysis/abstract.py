@@ -77,6 +77,11 @@ LAUNCHERS = {
     "interp_blend": ("interp_blend.cu",
                      ("interp_blend_kernel<float4>",
                       "interp_blend_kernel<float>")),
+    "vector_attention": ("vector_attention.cu",
+                         ("vector_attention_kernel<4>",
+                          "vector_attention_kernel<8>",
+                          "vector_attention_kernel<16>",
+                          "vector_attention_rows2_kernel<16>")),
 }
 
 # The largest shapes the paths launch (PERF.md's main-path rows and the PNN
@@ -117,6 +122,11 @@ PATH_SHAPES = (
       for ml, c in ((185, 1024), (758, 512), (3041, 256), (9916, 128))),
     ("interp_blend", (8 * 9916, 256, 64, 1)),
     ("interp_blend", (8 * 9916, 256, 33, 1)),
+    # Point Transformer's attention at each level of a 16-room microbatch
+    # (B, m, C, k, N = C / 8): every tiling of the kernel.
+    *(("vector_attention", (16, m, c, k, c // 8))
+      for m, c, k in ((289000, 32, 8), (72250, 64, 16), (18062, 128, 16),
+                      (4516, 256, 16), (1129, 512, 16))),
 )
 
 

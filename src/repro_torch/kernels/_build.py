@@ -52,6 +52,8 @@ SIGNATURES = {
     "fc_local_aggregate": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # out, vals, wgt, leaf_start, count, B, leaves, rows, bs, C, stream
     "fc_interp_blend": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qkv, nidx, mask, rel, the eleven weights, out, B, m, C, k, N, stream
+    "fc_vector_attention": [_P] * 16 + [_I, _I, _I, _I, _I, _P],
     # Query twins of the launchers: the launch geometry of given shapes
     # (shape ints, then an int[6] out), without a launch; a kernel
     # variant's attributes (variant, threads, smem, int[5] out); and the
@@ -67,10 +69,12 @@ SIGNATURES = {
     "fc_partition_geometry": [_I, _I, _I, _I, _P],   # B, n, depth, stage
     "fc_local_aggregate_geometry": [_I, _I, _I, _I, _I, _P],  # + aligned
     "fc_interp_blend_geometry": [_I, _I, _I, _I, _P],  # NB, bs, C, aligned
+    "fc_vector_attention_geometry": [_I, _I, _I, _I, _I, _P],  # B m C k N
     **{f"fc_{family}_attributes": [_I, _I, _I, _P]
        for family in ("fps_warp", "fps_cta", "fps_wide", "ball_query", "knn",
                       "gather", "scatter_add", "fractal_level",
-                      "partition", "local_aggregate", "interp_blend")},
+                      "partition", "local_aggregate", "interp_blend",
+                      "vector_attention")},
     "fc_device_limits": [_P],
 }
 

@@ -70,12 +70,25 @@ fall before row 0 or past the last row (never written), an ``out`` that
 is not 16-byte aligned, rows of ``out`` that no leaf holds (their values
 kept), padded lanes whose rows of vals and wgt are NaN (never read), and
 leaves blended a chunk at a time into one ``out`` against one call.
+Point Transformer's attention layer, ``vector_attention``, has its own
+(``attention_ladder``): each level's (C, k) of the published net, (32, 8),
+(64, 16), (128, 16), (256, 16) and (512, 16) at G = 8 groups (every
+tiling the kernel has: N = C / G of 4, 8, 16, 32 and 64), and C of 16, 48
+(N of 2 and 6: zero-padded columns), 1024 (N = 128) and 64 at G = 4; k of
+0, 1, 3 and 40; runs of points that cross a cloud's end; points with no
+valid slot, an all-masked cloud, masked slots whose index lies outside
+the cloud (never read), and a qkv that is not 16-byte aligned.
 
 Rules:
 
 * FPS, gather, the local aggregation and the blend must match exactly
   (the last two round every float op as their plain versions do, in the
   same order);
+* the vector attention within ``ATTN_TOL`` of the largest output,
+  absolutely (``hold_result``): the kernel sums in float32 FMAs, the w1
+  layer's C-long sums a channel at a time where the plain version's
+  matrix product blocks them, and its softmax's and weighted sum's sums in
+  slot order, so the two differ by rounding that grows with C;
 * ball query and kNN must match exactly: the same indices and bitwise the
   same d2 (the kernels round every float op as the plain versions do, and
   ties go to the lowest lane on both sides).  ``check_topk``, which allows
@@ -110,15 +123,17 @@ import torch
 
 from repro_torch.core import fractal
 from repro_torch.kernels import (ball_query, fps, fractal_level, gather,
-                                 interp_blend, knn, local_aggregate, ops)
+                                 interp_blend, knn, local_aggregate, ops,
+                                 vector_attention)
 from repro_torch.kernels.common import INF, sqdist_rows
 
 D2_TOL = 1e-5
 SUM_TOL = 1e-5
 GRAD_REL_TOL = 1e-3
+ATTN_TOL = 1e-5
 KERNELS = ("fps_blocks", "ball_query_blocks", "knn_blocks", "gather_blocks",
            "scatter_add_blocks", "fractal_level_blocks", "partition",
-           "local_aggregate", "interp_blend")
+           "local_aggregate", "interp_blend", "vector_attention")
 LEVEL_DIMS = ((0, 1), (1, 2), (2, 0))
 
 
@@ -241,7 +256,7 @@ def ladder(device) -> list:
             + chunk_ladder(device) + scatter_ladder(device)
             + level_ladder(device) + partition_ladder(device)
             + aggregate_ladder(device)
-            + blend_ladder(device))
+            + blend_ladder(device) + attention_ladder(device))
 
 
 def stride1_ladder(device) -> list:
@@ -444,6 +459,70 @@ def aggregate_ladder(device) -> list:
     return [("local_aggregate", aggregate_args(100 + k, b, m, c, ns, device,
                                                **kw))
             for k, (b, m, c, ns, kw) in enumerate(cases)]
+
+
+def attention_args(seed, b, m, c, k, device, *, groups=8, none=0.05,
+                   masked_cloud=False, misaligned=False) -> dict:
+    """Arguments of one ``vector_attention`` call: B clouds of m points,
+    each naming ``k`` rows near its own (slot 0 itself, as the level's
+    search gives it), ~70 % of the slots valid and a ``none`` share of the
+    points with none; masked slots hold indices outside [0, m) half of the
+    time; ``masked_cloud`` masks every slot of the last cloud.  Features
+    and weights at the scales a trained layer has (unit q|k|v, offsets
+    within half a metre, BatchNorm scales around 1), N = C / ``groups``;
+    ``misaligned`` puts qkv 4 bytes past a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    n = c // groups
+    i = np.arange(m)[None, :, None]
+    idx = np.clip(i + rng.integers(-24, 25, (b, m, k)), 0, m - 1)
+    mask = rng.random((b, m, k)) < 0.7
+    if k:
+        idx[..., 0] = i[..., 0]
+        mask[..., 0] = True
+    mask[rng.random((b, m)) < none] = False
+    if masked_cloud:
+        mask[-1] = False
+    far = rng.choice([-7, -1, m, m + 3, 2**31 - 1], (b, m, k))
+    idx = np.where(~mask & (rng.random((b, m, k)) < 0.5), far, idx)
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, dtype=np.float32)).to(device)
+
+    def normal(shape, sd):
+        return t(rng.normal(0, sd, shape))
+
+    qkv = normal((b, m, 3 * c), 1.0)
+    if misaligned:
+        flat = torch.empty(qkv.numel() + 1, dtype=torch.float32,
+                           device=device)
+        qkv = flat[1:].view(qkv.shape).copy_(qkv)
+    return dict(
+        qkv=qkv,
+        nidx=torch.from_numpy(idx.astype(np.int32)).to(device),
+        mask=torch.from_numpy(mask).to(device),
+        rel=t(rng.uniform(-0.5, 0.5, (b, m, k, 3))),
+        p1w=normal((3, 3), 3 ** -0.5), p1b=normal(3, 0.1),
+        p2w=normal((3, c), 3 ** -0.5), p2b=normal(c, 0.1),
+        s=t(rng.uniform(0.5, 1.5, c)),
+        w1w=normal((c, n), c ** -0.5), w1b=normal(n, 0.1),
+        w2w=normal((n, n), n ** -0.5), w2b=normal(n, 0.1),
+        bn_scale=t(rng.uniform(0.5, 1.5, c)), bn_shift=normal(c, 0.2))
+
+
+def attention_ladder(device) -> list:
+    """[("vector_attention", arguments)] of the attention layer's cases."""
+    cases = ((2, 300, 32, 8, {}), (2, 150, 64, 16, {}),
+             (3, 70, 128, 16, {}), (2, 45, 256, 16, {}),
+             (2, 33, 512, 16, {}), (1, 20, 1024, 16, {}),
+             (2, 90, 16, 8, {}), (2, 70, 48, 16, {}),
+             (2, 60, 64, 16, dict(groups=4)), (2, 40, 32, 0, {}),
+             (2, 50, 32, 1, {}), (3, 61, 64, 3, {}), (2, 65, 32, 40, {}),
+             (3, 97, 128, 16, dict(masked_cloud=True, none=0.3)),
+             (2, 7, 32, 8, dict(none=0.5)),
+             (2, 50, 64, 16, dict(misaligned=True)))
+    return [("vector_attention", attention_args(600 + i, b, m, c, k, device,
+                                                **kw))
+            for i, (b, m, c, k, kw) in enumerate(cases)]
 
 
 def blend_layout(seed, b, leaves, bs, *, fill=0.5, non_leaf=0.1, overflow=0,
@@ -694,6 +773,9 @@ def runners(name: str, args: dict):
     if name == "local_aggregate":
         return (lambda: local_aggregate.local_aggregate(**args),
                 lambda: local_aggregate.local_aggregate_plain(**args))
+    if name == "vector_attention":
+        return (lambda: vector_attention.vector_attention(**args),
+                lambda: vector_attention.vector_attention_plain(**args))
     if name == "interp_blend":
         # The blend writes in place: the kernel into one copy of ``out``,
         # made here (a repeated call rewrites the same rows), the plain
@@ -818,6 +900,18 @@ def hold_result(name: str, args: dict, got, want, tol: float = D2_TOL) -> dict:
                 raise AssertionError(f"partition: {field} differs from the "
                                      f"tensor pass")
         return {"max_abs_err": 0.0, "count_rows": 0}
+    if name == "vector_attention":
+        if got.shape != want.shape:
+            raise AssertionError(f"vector_attention: shape "
+                                 f"{tuple(got.shape)}, plain version "
+                                 f"{tuple(want.shape)}")
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        top = float(want.abs().max()) if want.numel() else 0.0
+        if not err <= ATTN_TOL * max(top, 1.0):
+            raise AssertionError(f"vector_attention differs from its plain "
+                                 f"version by {err:.3g} (largest output "
+                                 f"{top:.3g}, tolerance {ATTN_TOL})")
+        return {"max_abs_err": err, "count_rows": 0}
     if name in ("fps_blocks", "gather_blocks", "local_aggregate",
                 "interp_blend"):
         if not torch.equal(got, want):
@@ -943,6 +1037,17 @@ def work(name: str, args: dict) -> tuple[float, float]:
         slots = int(ok.sum())
         return (rows * c * 4 + slots * 16 + msk.numel() + c * 16
                 + b * m * c * 4, float(slots * c) * 8.0)
+    if name == "vector_attention":
+        # reads q|k|v once a point, each slot's index, mask bit and
+        # offsets, and the weights; writes one C-row a point; the delta and
+        # w layers take 2 (9 + 3 C + C N + N^2) operations a valid slot
+        qkv, idx, msk = args["qkv"], args["nidx"], args["mask"]
+        b, m, c3 = qkv.shape
+        c, n = c3 // 3, args["w2w"].shape[0]
+        slots = int((msk & (idx >= 0) & (idx < m)).sum())
+        weights = sum(args[w].numel() for w in vector_attention.WEIGHTS)
+        return (b * m * (16 * c + 17 * idx.shape[2]) + weights * 4,
+                float(slots) * 2.0 * (9 + 3 * c + c * n + n * n))
     if name == "scatter_add_blocks":
         # reads the indices and each in-range cotangent row, writes the
         # whole window tile; one add per in-range (row, channel)
@@ -1005,7 +1110,8 @@ class Recorder:
                 **{n: wrap(n, f) for n, f in fns.items()})
 
         self._saved = {a: getattr(ops, a) for a in ("_fps", "_bq", "_knn",
-                                                     "_ga", "_la", "_ib")}
+                                                     "_ga", "_la", "_ib",
+                                                     "_va")}
         ops._fps = stand_in(ops._fps, "fps_blocks",
                             lambda c, m, *, k: dict(coords=c, mask=m, k=k))
         ops._bq = stand_in(
@@ -1027,6 +1133,10 @@ class Recorder:
             lambda out, vals, wgt, leaf_start, count: dict(
                 vals=vals, wgt=wgt, leaf_start=leaf_start, count=count,
                 out=out))
+        names = ("qkv", "nidx", "mask", "rel") + vector_attention.WEIGHTS
+        ops._va = stand_in(ops._va, "vector_attention",
+                           lambda *a: dict(zip(names,
+                                               (t.detach() for t in a))))
         return self
 
     def __exit__(self, *exc):

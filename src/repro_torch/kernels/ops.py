@@ -26,7 +26,9 @@ differentiates on the CPU); and of ``interp_blend``, the FP stage's 3-NN
 blend of the gathered rows over the occupied leaf lanes, written into its
 ``out`` in place (``core.bppo.blockwise_interpolate`` calls it once a leaf
 chunk, so it takes no ``chunk`` either), which differentiates in ``vals``
-on both devices through ``Blending``.
+on both devices through ``Blending``; and of ``vector_attention``, Point
+Transformer's attention layer after its q|k|v product, once a block and
+inference-only on the card as ``local_aggregate`` is.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from repro_torch.kernels import interp_blend as _ib
 from repro_torch.kernels import knn as _knn
 from repro_torch.kernels import local_aggregate as _la
 from repro_torch.kernels import partition as _pa
+from repro_torch.kernels import vector_attention as _va
 from repro_torch.kernels.vjp import Blending, Gathering, IndexProducer
 
 KERNELS = {"fps_blocks": _fps.fps_blocks,
@@ -50,7 +53,8 @@ KERNELS = {"fps_blocks": _fps.fps_blocks,
            "fractal_level_blocks": _fl.fractal_level_blocks,
            "partition": _pa.partition,
            "local_aggregate": _la.local_aggregate,
-           "interp_blend": _ib.interp_blend}
+           "interp_blend": _ib.interp_blend,
+           "vector_attention": _va.vector_attention}
 
 
 def launch_counts() -> dict:
@@ -181,3 +185,16 @@ def interp_blend(out, vals, wgt, leaf_start, count):
     return Blending.apply(_ib.interp_blend, out, _pts(vals), _pts(wgt),
                           leaf_start.to(torch.int32).contiguous(),
                           count.to(torch.int32).contiguous())
+
+
+def vector_attention(qkv, nidx, mask, rel, p1w, p1b, p2w, p2b, s, w1w, w1b,
+                     w2w, w2b, bn_scale, bn_shift):
+    """qkv (B, m, 3C) each point's [q | k | v], nidx (B, m, k) its
+    neighbours' rows, mask (B, m, k), rel (B, m, k, 3) their offsets, and
+    the layer's folded weights -> (B, m, C): Point Transformer's vector
+    attention over the valid slots, then the BatchNorm and ReLU after it
+    (``kernels/vector_attention.py``)."""
+    return _va.vector_attention(
+        _pts(qkv), nidx.to(torch.int32).contiguous(), _mask(mask), _pts(rel),
+        *(_pts(w) for w in (p1w, p1b, p2w, p2b, s, w1w, w1b, w2w, w2b,
+                            bn_scale, bn_shift)))

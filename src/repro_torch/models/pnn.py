@@ -180,15 +180,18 @@ class Layer(nn.Module):
             raise ValueError(f"norm must be 'layernorm' or 'batchnorm', "
                              f"got {norm!r}")
 
+    def folded(self):
+        """(w, b): the dense weights and bias with BatchNorm folded in."""
+        scale, shift = self.bn.affine()
+        return self.dense.w * scale, self.dense.b * scale + shift
+
     def forward(self, x, act: bool = True):
         if self.norm == "layernorm":
             x = self.ln(self.dense(x))
         else:
-            scale, shift = self.bn.affine()
-            w = self.dense.w * scale
-            x = torch.addmm(self.dense.b * scale + shift,
-                            x.reshape(-1, x.shape[-1]), w).view(
-                                *x.shape[:-1], w.shape[1])
+            w, b = self.folded()
+            x = torch.addmm(b, x.reshape(-1, x.shape[-1]), w).view(
+                *x.shape[:-1], w.shape[1])
         return torch.relu(x) if act else x
 
 
@@ -233,10 +236,8 @@ class InvResMLP(nn.Module):
     def forward(self, f, nidx, gmask, rel):
         """f (B, m, C); nidx (B, m, ns) int32, each centre's neighbour rows
         of f; gmask (B, m, ns); rel (B, m, ns, 3) their offsets."""
-        scale, shift = self.la.bn.affine()
-        w = self.la.dense.w * scale
-        g = ops.local_aggregate(f @ w[3:], nidx, gmask, rel, w[:3],
-                                self.la.dense.b * scale + shift)
+        w, b = self.la.folded()
+        g = ops.local_aggregate(f @ w[3:], nidx, gmask, rel, w[:3], b)
         return torch.relu(f + self.pw2(self.pw1(g), act=False))
 
 

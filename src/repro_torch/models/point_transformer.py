@@ -34,6 +34,14 @@ each point's k nearest neighbours j (itself included; ``stem_k`` at level
 The softmax runs over the valid neighbours, channel by channel; a point
 with none (padding, or past th in an overflowing leaf) gets 0.
 
+q, k and v are one matrix product a point onto [q | k | v]; everything
+after it -- delta, a, the w layers, the masked softmax, the weighted sum,
+and the BatchNorm and ReLU after the layer -- is ``ops.vector_attention``,
+one hand-written CUDA kernel a block on the card, which reads each
+neighbour's k and v rows by index and writes no (B, m, k, .) tensor.  On
+the card the layer is therefore inference-only (the kernel has no backward
+and raises under autograd); on the CPU its plain version differentiates.
+
 Every block of a level sees the same points with the same k, so the
 level's neighbours are found once (``bppo.blockwise_knn_points`` over the
 level's partition, every valid point of a leaf a query against its leaf's
@@ -46,7 +54,7 @@ levels 1-3; the last level gets one of its own.  BPPO point ops only:
 BatchNorm is in inference form.  A ``Layer`` folds it into its dense
 weights; the BN on ``a_ij`` folds its scale into W_q and W_k and its shift
 into b_k, and scales delta in the sum; the BN after the layer is one
-affine.
+affine, applied in the kernel's epilogue.
 
 Inside a serving microbatch the forward marks its phases as
 ``repro_torch.obs`` spans: ``stem.mlp`` (level 0's ``down``), for the
@@ -74,6 +82,7 @@ from torch import nn
 from repro_torch import obs
 from repro_torch.core import bppo
 from repro_torch.core.fractal import partition, take, unpermute
+from repro_torch.kernels import ops
 from repro_torch.models.pnn import (BatchNorm, Dense, Layer, PNNConfig,
                                     SAStage, fp_names, sa_names)
 
@@ -124,27 +133,22 @@ class VectorAttention(nn.Module):
         self.w1 = Layer(c, c // share, generator, "batchnorm")
         self.w2 = Dense(c // share, c // share, generator)
 
-    def forward(self, f, nidx, mask, rel):
+    def forward(self, f, nidx, mask, rel, out_scale, out_shift):
         """f (B, m, C); nidx (B, m, k) each point's neighbour rows of f;
-        mask (B, m, k); rel (B, m, k, 3) their offsets."""
+        mask (B, m, k); rel (B, m, k, 3) their offsets; (out_scale,
+        out_shift) (C,) the BatchNorm after the layer -> ReLU(BN(y))."""
         b, m, c = f.shape
-        k = nidx.shape[-1]
         s, t = self.bn_a.affine()
-        x = f.reshape(-1, c)
-        q = torch.addmm(self.q.b * s, x, self.q.w * s).view(b, m, 1, c)
-        kv = torch.addmm(torch.cat([self.k.b * s + t, self.v.b]), x,
-                         torch.cat([self.k.w * s, self.v.w], 1))
-        kv = take(kv.view(b, m, 2 * c), nidx)               # (B, m, k, 2C)
-        delta = torch.addmm(self.p2.b, self.p1(rel).reshape(-1, 3),
-                            self.p2.w).view(b, m, k, c)
-        a = torch.addcmul(kv[..., :c] - q, delta, s).relu_()
-        w = torch.addmm(self.w2.b, self.w1(a).reshape(-1, c // self.share),
-                        self.w2.w).view(b, m, k, c // self.share)
-        w = torch.softmax(w.masked_fill(~mask[..., None], NEG), dim=2)
-        w = w * mask[..., None]
-        g = self.share
-        y = (kv[..., c:] + delta).view(b, m, k, g, c // g) * w[..., None, :]
-        return y.sum(2).view(b, m, c)
+        qkv = torch.addmm(
+            torch.cat([self.q.b * s, self.k.b * s + t, self.v.b]),
+            f.reshape(-1, c), torch.cat([self.q.w * s, self.k.w * s,
+                                         self.v.w], 1)).view(b, m, 3 * c)
+        p1w, p1b = self.p1.folded()
+        w1w, w1b = self.w1.folded()
+        return ops.vector_attention(qkv, nidx, mask, rel, p1w, p1b,
+                                    self.p2.w, self.p2.b, s, w1w, w1b,
+                                    self.w2.w, self.w2.b, out_scale,
+                                    out_shift)
 
 
 class Block(nn.Module):
@@ -227,8 +231,7 @@ def _block(blk: Block, f, nbrs, names):
     with obs.span(mlp_span):
         h = blk.linear1(f)
     with obs.span(attn_span):
-        s, t = blk.bn2.affine()
-        h = torch.addcmul(t, blk.attn(h, *nbrs), s).relu_()
+        h = blk.attn(h, *nbrs, *blk.bn2.affine())
     with obs.span(mlp_span):
         f = torch.relu(f + blk.linear3(h, act=False))
     obs.tally("pt_blocks")
